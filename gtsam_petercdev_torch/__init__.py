@@ -10,14 +10,19 @@ Device rule: every public entry point takes `device=` and defaults to
 "cuda"; without a CUDA device it raises unless the caller passes
 `device="cpu"` (see `device.py`).
 
-Ported so far (the batch Pose3 solve):
-  geometry/   so3, rot2, pose2, pose3
-  core/       manifold registry
+Ported so far (the batch Pose3 solve and bundle adjustment):
+  core/       manifold registry, keys / symbols
+  geometry/   so3, rot2, pose2, pose3, calibrations, cameras
   linear/     noise models, dense solve and matrix-free products
   nonlinear/  Values, NonlinearFactorGraph, GN / LM
-  slam/       prior / between factors (analytic Pose3 Jacobians)
+  slam/       prior / between factors (analytic Pose3 Jacobians),
+              projection factors
+  sfm/        SfmCamera manifold, BAL reader, landmark Schur solver
+  models/     synthetic BA rigs, the bundle-adjustment pipeline
   inference/  symbolic planner, plain bucket kernels, multifrontal solver
-  ops/        CUDA bucket partial Cholesky + fused backsolve
+  ops/        the four CUDA bucket kernels: partial Cholesky (global-memory
+              and shared-memory working copy, dense and block-pool input)
+              and the fused backsolve
   utils/      numpy -> port conversion, synthetic Pose3 ring graphs
 """
 

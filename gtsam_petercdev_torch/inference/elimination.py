@@ -9,9 +9,15 @@ slice of the pool. Factor Hessian blocks and child->parent Schur
 contributions reach their slots through host-planned gather-sums
 (`GatherSumPlan`): deterministic, scatter-free sums.
 
-Per bucket, `ops.cholesky_v2.partial_cholesky` factors all its cliques
-(the CUDA kernel on the card, the plain version on the CPU); the top-down
-back-substitution runs `ops.cholesky_v2.backsolve_bucket` per bucket.
+Per bucket, one of three partial-Cholesky kernels factors all its cliques,
+chosen by the bucket's shape alone (`bucket_route`): a leaf bucket whose
+clique fits shared memory goes to `ops.cholesky.partial_cholesky_blocks`
+(K4), which reads the pool slice as it is and leaves U / ug in block layout
+for the parent's extend-add; another bucket that fits goes to
+`ops.cholesky.partial_cholesky` (K3); the rest go to
+`ops.cholesky_v2.partial_cholesky` (K1). Each is a CUDA kernel on the card
+and its plain version on the CPU. The top-down back-substitution runs
+`ops.cholesky_v2.backsolve_bucket` (K2) per bucket.
 
 Eager execution: the JAX package traces the index maps into one jitted
 program; here every plan index tensor is uploaded ONCE per (NumericMaps,
@@ -40,7 +46,7 @@ from gtsam_petercdev_torch.inference.symbolic import (
     EliminationPlan,
     symbolic_eliminate,
 )
-from gtsam_petercdev_torch.ops import cholesky_v2
+from gtsam_petercdev_torch.ops import cholesky, cholesky_v2
 
 
 @dataclass
@@ -154,8 +160,10 @@ class DeviceBucket:
 
     # per extend-add group: (child bucket, sel, scalar map [n_sel, m] from a
     # parent row to the child's padded U row (sd_child = the zero pad row),
-    # arange(n_sel) [n_sel, 1, 1] for the batched gather)
-    ext: List[Tuple[int, torch.Tensor, torch.Tensor, torch.Tensor]]
+    # arange(n_sel) [n_sel, 1, 1] for the batched gather, and — for a child
+    # bucket without children of its own, whose U may be in block layout —
+    # the same map split into (block index, index in the block), else None)
+    ext: List[Tuple[int, torch.Tensor, torch.Tensor, torch.Tensor, Optional[tuple]]]
     ext_seg: Optional[DeviceGatherSum]
     sep_idx: torch.Tensor  # [B * ns]
     fro_idx: torch.Tensor  # [B * nf]
@@ -216,7 +224,10 @@ def _upload(maps: NumericMaps, device) -> DeviceMaps:
                 for c in np.nonzero(pp[:, a] >= 0)[0]:
                     p0 = int(pp[c, a]) * d
                     rowmap[c, p0 : p0 + d] = np.arange(a * d, a * d + d)
-            ext.append((ch_bf, up(sel), up(rowmap), up(np.arange(nsel)[:, None, None])))
+            # a leaf child may hand over U as [ns_c, ns_c, d, d] blocks: row
+            # a*d+e is block a, in-block e; the pad row is the zero block ns_c
+            blocked = None if maps.buckets[ch_bf].ext_mm else (up(rowmap // d), up(rowmap % d))
+            ext.append((ch_bf, up(sel), up(rowmap), up(np.arange(nsel)[:, None, None]), blocked))
         buckets.append(
             DeviceBucket(
                 ext=ext,
@@ -543,6 +554,41 @@ def assemble(maps: NumericMaps, dm: DeviceMaps, Ab, lam, diagonal_damping: bool)
     return pool, gp
 
 
+def bucket_route(bm: BucketMaps, d: int, itemsize: int) -> str:
+    """Which partial-Cholesky kernel factors a bucket, by its shape alone:
+    "blocks" (K4: a leaf bucket — no extend-add, its frontal matrices are the
+    pool slice as assembled — whose clique fits shared memory), "smem" (K3:
+    another bucket whose clique fits) or "global" (K1: the rest)."""
+    if not cholesky.fits_smem(bm.nf, bm.ns, d, itemsize):
+        return "global"
+    return "smem" if bm.ext_mm else "blocks"
+
+
+def _extend_add(db: DeviceBucket, outs, m: int, d: int):
+    """Children's Schur contributions in the parent's frame: (dF [B, m*m],
+    dg [B, m]). A child's dense U is gathered by the scalar row map; block-
+    layout U (from K4) by its block and in-block indices, without ever
+    becoming [B, sd, sd]."""
+    incs, incgs = [], []
+    for ch_bf, sel, rowmap, c, blocked in db.ext:
+        out = outs[ch_bf]
+        if "U_blocks" in out:
+            bi, ii = blocked
+            ns_c = out["ug_blocks"].shape[1]
+            Ub = out["U_blocks"][sel].reshape(-1, ns_c, ns_c, d, d)
+            Ub = tnf.pad(Ub, (0, 0, 0, 0, 0, 1, 0, 1))  # one zero block per block axis
+            inc = Ub[c, bi[:, :, None], bi[:, None, :], ii[:, :, None], ii[:, None, :]]
+            ugs = out["ug_blocks"][sel].reshape(-1, ns_c * d)
+        else:
+            Us = tnf.pad(out["U"][sel], (0, 1, 0, 1))
+            inc = Us[c, rowmap[:, :, None], rowmap[:, None, :]]
+            ugs = out["ug"][sel]
+        incs.append(inc.reshape(-1, m * m))
+        incgs.append(torch.gather(tnf.pad(ugs, (0, 1)), 1, rowmap))
+    return (apply_gather_sum(db.ext_seg, torch.cat(incs, dim=0)),
+            apply_gather_sum(db.ext_seg, torch.cat(incgs, dim=0)))
+
+
 def multifrontal_solve(
     maps: NumericMaps,
     Ab,
@@ -568,22 +614,25 @@ def multifrontal_solve(
     # and segment-sums them per parent (the extend-add)
     outs = []
     bad_total = torch.zeros((), dtype=torch.int32, device=dev)
+    itemsize = b0.element_size()
     for bm, db in zip(maps.buckets, dm.buckets):
         B, nf, mb = bm.B, bm.nf, bm.mb
         m = mb * d
         blocks = pool[bm.blk_start : bm.blk_start + B * mb * mb]
-        Fm = blocks.reshape(B, mb, mb, d, d).permute(0, 1, 3, 2, 4).reshape(B, m, m)
-        gm = gp[bm.g_start : bm.g_start + B * mb].reshape(B, m)
-        if db.ext:
-            incs, incgs = [], []
-            for ch_bf, sel, rowmap, c in db.ext:
-                Us = tnf.pad(outs[ch_bf]["U"][sel], (0, 1, 0, 1))
-                ugs = tnf.pad(outs[ch_bf]["ug"][sel], (0, 1))
-                incs.append(Us[c, rowmap[:, :, None], rowmap[:, None, :]].reshape(-1, m * m))
-                incgs.append(torch.gather(ugs, 1, rowmap))
-            Fm = Fm + apply_gather_sum(db.ext_seg, torch.cat(incs, dim=0)).reshape(B, m, m)
-            gm = gm + apply_gather_sum(db.ext_seg, torch.cat(incgs, dim=0))
-        out = cholesky_v2.partial_cholesky(Fm, gm, nf, d)
+        gblocks = gp[bm.g_start : bm.g_start + B * mb]
+        route = bucket_route(bm, d, itemsize)
+        if route == "blocks":
+            out = cholesky.partial_cholesky_blocks(
+                blocks.view(-1, d, d), gblocks.view(B, mb, d), nf, bm.ns, d)
+        else:
+            Fm = cholesky.dense_from_blocks(blocks, B, mb, d)
+            gm = gblocks.reshape(B, m)
+            if db.ext:
+                dF, dg = _extend_add(db, outs, m, d)
+                Fm = Fm + dF.reshape(B, m, m)
+                gm = gm + dg
+            chol = cholesky.partial_cholesky if route == "smem" else cholesky_v2.partial_cholesky
+            out = chol(Fm, gm, nf, d)
         bad_total = bad_total + out["bad"]
         outs.append(out)
 
@@ -610,12 +659,24 @@ def multifrontal_solve(
 # ---------------------------------------------------------------------------
 
 
-def _graph_plan(graph, lg):
-    """(plan, maps) for this graph's structure, cached on the graph."""
-    key = (
+def _plan_key(lg):
+    return (
         tuple((lb.var_types, len(lb.b)) for lb in lg.batches),
         tuple(sorted(lg.type_counts.items())),
     )
+
+
+def set_graph_plan(graph, lg, plan: EliminationPlan, maps: NumericMaps) -> None:
+    """Make `solve_linearized` use a prebuilt (plan, maps) for this graph's
+    structure: a plan depends on the structure alone, so a caller that
+    solves one structure in two dtypes, or with an ordering of its own,
+    plans once."""
+    graph.__dict__.setdefault("_mf_plans", {})[_plan_key(lg)] = (plan, maps)
+
+
+def _graph_plan(graph, lg):
+    """(plan, maps) for this graph's structure, cached on the graph."""
+    key = _plan_key(lg)
     cache = graph.__dict__.setdefault("_mf_plans", {})
     ent = cache.get(key)
     if ent is None:
@@ -672,13 +733,7 @@ def solve_linearized(graph, values, lam, diagonal_damping=False, cache=None):
         for t in types
     }
 
-    # linearized cost decrease for LM's rho
-    g = linsolve.gradient(lg)
-    Hd = linsolve.hvp(lg, delta)
-    lin_dec = sum(torch.vdot(g[t].reshape(-1), delta[t].reshape(-1)) for t in delta) - 0.5 * sum(
-        torch.vdot(delta[t].reshape(-1), Hd[t].reshape(-1)) for t in delta
-    )
-    return delta, lin_dec
+    return delta, linsolve.linearized_decrease(lg, delta)
 
 
 def plan_flop_stats(plan, var_dims=None):

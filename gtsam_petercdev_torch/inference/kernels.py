@@ -3,8 +3,9 @@
 Port of gtsam_petercdev_tpu/inference/kernels.py. A whole shape bucket of
 cliques [B, m, m] is factored by one Python loop over d x d block columns
 whose body is a handful of batched products. These are the plain versions
-of the CUDA kernels in `ops/cholesky_v2.py`: CPU tensors run them, and
-`chip_smoke.py` holds each CUDA kernel against them on the card.
+of the CUDA kernels in `ops/cholesky_v2.py` and `ops/cholesky.py`: CPU
+tensors run them, and `chip_smoke.py` holds each CUDA kernel against them on
+the card.
 
 Numerical-failure surfacing (choleskyCareful semantics): a pivot <= eps
 (eps = 1e-10 in both dtypes) is clamped to eps and COUNTED; callers get the

@@ -64,6 +64,18 @@ def hvp(lg: LinearizedGraph, v: VectorValues) -> VectorValues:
     return out
 
 
+def linearized_decrease(lg: LinearizedGraph, delta: VectorValues) -> torch.Tensor:
+    """Cost decrease of the UNdamped linear model for a step, LM's rho
+    denominator: 0.5||r||^2 - 0.5||r - J d||^2 = g.d - 0.5 d^T H d."""
+    g = gradient(lg)
+    Hd = hvp(lg, delta)
+    return sum(
+        torch.vdot(g[t].reshape(-1), delta[t].reshape(-1))
+        - 0.5 * torch.vdot(delta[t].reshape(-1), Hd[t].reshape(-1))
+        for t in delta
+    )
+
+
 # --- global offsets ---------------------------------------------------------
 
 

@@ -3,8 +3,8 @@
 Port of gtsam_petercdev_tpu/nonlinear/factor_graph.py. Factors are grouped
 by FactorType into batches {params: [N, ...], keys: [N, K]}; residuals and
 manifold Jacobians come either from a closed-form batched `analytic`
-function (the Pose3 fast path) or from
-`torch.func.vmap(torch.func.jacfwd(residual o retract))` per type.
+function (the Pose3 fast path) or from `torch.func.jacfwd` of
+(residual o retract) over the whole batch at once.
 
 Linearization output is a `LinearizedGraph`: per batch, whitened Jacobian
 blocks A_k [N, d, dim_k] per key slot plus rhs b = -whitened_error [N, d].
@@ -41,8 +41,7 @@ class FactorType:
 
     residual(xs, params) -> [..., resid_dim]: xs is a tuple of variable
     params (one per key slot, manifold types per var_types); written over
-    leading batch dims, so it runs on one factor (under vmap) or on a
-    whole batch.
+    leading batch dims: `error` and `linearize` call it on a whole batch.
     """
 
     name: str
@@ -116,25 +115,27 @@ def residual_and_jac(ftype: FactorType, robust, xs, params, sqrt_info):
         Js = [sqrt_info @ Jk for Jk in Js0]
     else:
         total = int(sum(dims))
+        n = sqrt_info.shape[0]
 
-        def one_factor(xs_single, p, R):
-            def single(delta_flat):
-                deltas = torch.split(delta_flat, dims)
-                xs_r = tuple(
-                    retracts[k](x, dl) for k, (x, dl) in enumerate(zip(xs_single, deltas))
-                )
-                if ftype.linearize_residual is not None:
-                    r = ftype.linearize_residual(xs_r, xs_single, p)
-                else:
-                    r = ftype.residual(xs_r, p)
-                rw = R @ r
-                return rw, rw
+        # One forward-mode pass over the WHOLE batch: factor i's residual
+        # depends on its own delta alone, so pushing the basis vector e_k
+        # through every factor at once gives column k of every Jacobian.
+        # (Keeping the batch axis inside the differentiated function also
+        # keeps every intermediate at >= 1 dim: forward-mode tangents of
+        # 0-dim float32 tensors combined with Python scalars come out in
+        # float64 on some PyTorch versions.)
+        def batch_fn(delta_flat):
+            deltas = torch.split(delta_flat.expand(n, total), dims, dim=-1)
+            xs_r = tuple(retracts[k](x, dl) for k, (x, dl) in enumerate(zip(xs, deltas)))
+            if ftype.linearize_residual is not None:
+                r = ftype.linearize_residual(xs_r, xs, params)
+            else:
+                r = ftype.residual(xs_r, params)
+            rw = _whiten(sqrt_info, r)
+            return rw, rw
 
-            z = torch.zeros(total, dtype=R.dtype, device=R.device)
-            J, r_w = torch.func.jacfwd(single, has_aux=True)(z)  # [d, total]
-            return r_w, J
-
-        r_w, J = torch.func.vmap(one_factor)(xs, params, sqrt_info)
+        z = torch.zeros(total, dtype=sqrt_info.dtype, device=sqrt_info.device)
+        J, r_w = torch.func.jacfwd(batch_fn, has_aux=True)(z)  # [N, d, total]
         Js = list(torch.split(J, dims, dim=-1))
 
     if robust is not None:

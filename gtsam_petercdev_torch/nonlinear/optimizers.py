@@ -9,9 +9,10 @@ damped step reduces the true cost with model fidelity
 rho = costChange / linearizedCostChange >= min_model_fidelity; a trial whose
 factorization clamped pivots is rejected and re-damped.
 
-Solvers: "dense" (exact dense Cholesky) and "multifrontal" (the sparse
+Solvers: "dense" (exact dense Cholesky), "multifrontal" (the sparse
 supernodal solve of inference/elimination.py, whose bucket kernels run on
-the card).
+the card) and "schur" (bundle adjustment: batched landmark elimination and
+a dense reduced camera solve, sfm/schur.py).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ class OptimizerParams:
     relative_error_tol: float = 1e-5
     absolute_error_tol: float = 1e-5
     error_tol: float = 0.0
-    solver: str = "dense"  # dense | multifrontal
+    solver: str = "dense"  # dense | multifrontal | schur
     verbose: bool = False
 
 
@@ -106,6 +107,14 @@ def _build_fns(graph: NonlinearFactorGraph, params: OptimizerParams):
 
         def solve(values, lam, cache):
             return elimination.solve_linearized(
+                graph, values, lam, diagonal_damping=damping, cache=cache
+            )
+
+    elif params.solver == "schur":
+        from gtsam_petercdev_torch.sfm import schur
+
+        def solve(values, lam, cache):
+            return schur.solve_linearized(
                 graph, values, lam, diagonal_damping=damping, cache=cache
             )
 

@@ -29,6 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {
     "partial_cholesky": "partial_cholesky.cu",
     "backsolve": "backsolve.cu",
+    "partial_cholesky_smem": "partial_cholesky_smem.cu",
 }
 
 NVCC_FLAGS = [
@@ -38,12 +39,19 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argtypes of the C entry points (T = the kernel's float type)
+# library -> {C entry point (before its _f32 / _f64 suffix): argtypes, given
+# T = the kernel's float type}
+# F, g, L, Linv, W, y, U, ug, bad, B, nf, ns, d, eps, stream
+_SMEM_SIGNATURE = lambda T: [_P] * 9 + [_I] * 4 + [T, _P]
 _SIGNATURES = {
     # F, g, scratch, L, Linv, W, y, U, ug, bad, B, nf, ns, d, eps, stream
-    "partial_cholesky": lambda T: [_P] * 10 + [_I] * 4 + [T, _P],
+    "partial_cholesky": {"gtsam_partial_cholesky": lambda T: [_P] * 10 + [_I] * 4 + [T, _P]},
     # L, Linv, W, y, xs, x, B, nf, ns, d, stream
-    "backsolve": lambda T: [_P] * 6 + [_I] * 4 + [_P],
+    "backsolve": {"gtsam_backsolve": lambda T: [_P] * 6 + [_I] * 4 + [_P]},
+    "partial_cholesky_smem": {
+        "gtsam_partial_cholesky_smem": _SMEM_SIGNATURE,
+        "gtsam_partial_cholesky_blocks": _SMEM_SIGNATURE,
+    },
 }
 
 _LOCK = threading.Lock()
@@ -95,6 +103,16 @@ def build_all(verbose: bool = False) -> List[str]:
     return report
 
 
+def declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set argtypes / restype of every entry point of kernel library `name`."""
+    for entry, signature in _SIGNATURES[name].items():
+        for suffix, T in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            fn = getattr(lib, f"{entry}_{suffix}")
+            fn.argtypes = signature(T)
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built on first use; argtypes declared."""
     with _LOCK:
@@ -102,10 +120,5 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             if not os.path.exists(library_path(name)):
                 build_all()
-            lib = ctypes.CDLL(library_path(name))
-            for suffix, T in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
-                fn = getattr(lib, f"gtsam_{name}_{suffix}")
-                fn.argtypes = _SIGNATURES[name](T)
-                fn.restype = ctypes.c_int
-            _LOADED[name] = lib
+            lib = _LOADED[name] = declare(ctypes.CDLL(library_path(name)), name)
         return lib

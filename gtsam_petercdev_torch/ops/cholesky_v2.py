@@ -118,5 +118,10 @@ backsolve_bucket.launches = 0
 
 
 def reset_launch_counts() -> None:
-    partial_cholesky.launches = 0
-    backsolve_bucket.launches = 0
+    """Set the launch counts of all four bucket kernels to 0 (K1 and K2
+    here, K3 and K4 in ops/cholesky.py)."""
+    from gtsam_petercdev_torch.ops import cholesky
+
+    for fn in (partial_cholesky, backsolve_bucket, cholesky.partial_cholesky,
+               cholesky.partial_cholesky_blocks):
+        fn.launches = 0

@@ -7,12 +7,13 @@ there is no GPU and no nvcc.
 Each source in gtsam_petercdev_torch/csrc/ is compiled with g++ (C++20)
 against a small header that emulates what the kernels use: blocks run one
 after another, a block's threads run as std::threads, __syncthreads() is a
-std::barrier, __shared__ arrays are statics. The extern "C" entry points
+std::barrier, __shared__ arrays are statics and dynamic shared memory is a
+per-CTA buffer of the size the launch asks for. The extern "C" entry points
 are then called through ctypes on numpy arrays and their outputs held
-against the plain PyTorch versions (inference/kernels.py) at a set of
-bucket shapes, in float64 and float32, plus an indefinite bucket (equal
-bad-pivot counts). This checks indexing, phases and barriers; it says
-nothing about speed or about what nvcc accepts.
+against the plain PyTorch versions (inference/kernels.py, ops/cholesky.py)
+at a set of bucket shapes with d = 3, 6, 9 and 16, in float64 and float32,
+plus an indefinite bucket (equal bad-pivot counts). This checks indexing,
+phases and barriers; it says nothing about speed or about what nvcc accepts.
 """
 
 import ctypes
@@ -29,7 +30,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from gtsam_petercdev_torch.inference import kernels  # noqa: E402
-from gtsam_petercdev_torch.ops import build, cholesky_v2  # noqa: E402
+from gtsam_petercdev_torch.ops import build, cholesky, cholesky_v2  # noqa: E402
 
 FAKE_CUDA = r"""
 #pragma once
@@ -44,6 +45,7 @@ FAKE_CUDA = r"""
 #define __restrict__
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __align__(n)
 using std::sqrt;
 inline float sqrtf(float x) { return std::sqrt(x); }
 struct dim3_ { unsigned x = 0, y = 0, z = 0; };
@@ -52,13 +54,20 @@ inline dim3_ blockDim, gridDim;
 typedef void* cudaStream_t;
 inline std::barrier<>* g_bar = nullptr;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+typedef int cudaError_t;
+constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 inline int cudaGetLastError() { return 0; }
+template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
+inline unsigned char* g_dyn_smem = nullptr;
 template <class F>
-void emu_launch(int B, int nt, F body) {
+void emu_launch(int B, int nt, size_t smem, F body) {
   blockDim.x = nt; gridDim.x = B;
   for (int b = 0; b < B; ++b) {
     std::barrier<> bar(nt);
     g_bar = &bar;
+    std::vector<std::max_align_t> dyn(smem / sizeof(std::max_align_t) + 1);
+    g_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
     std::vector<std::thread> ts;
     for (int t = 0; t < nt; ++t)
       ts.emplace_back([&, b, t]() { blockIdx.x = b; threadIdx.x = t; body(); });
@@ -67,9 +76,11 @@ void emu_launch(int B, int nt, F body) {
 }
 """
 
-# (B, nf, ns, d): leaves (ns = 0), 256- and 1024-thread CTAs, d = 3 and 16
+# (B, nf, ns, d): leaves (ns = 0), 64-, 256- and 1024-thread CTAs, d = 3, 6,
+# 9 (the bundle-adjustment block size) and 16
 SHAPES = [(3, 2, 1, 6), (4, 1, 0, 6), (2, 4, 3, 6), (5, 3, 2, 3), (2, 12, 16, 6),
-          (1, 8, 24, 6), (2, 4, 40, 6), (1, 32, 0, 6), (2, 3, 9, 16)]
+          (1, 8, 24, 6), (2, 4, 40, 6), (1, 32, 0, 6), (2, 3, 9, 16),
+          (6, 1, 4, 9), (3, 1, 0, 9), (2, 2, 3, 9), (1, 6, 6, 9)]
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
 
@@ -81,22 +92,21 @@ def compile_emulated(workdir):
     for name, src in build.SOURCES.items():
         with open(os.path.join(build.CSRC, src)) as f:
             code = f.read().replace("#include <cuda_runtime.h>", '#include "fake_cuda.h"')
-        # kernel<T><<<grid, block, smem, stream>>>(args); -> emu_launch(...)
-        m = re.search(r"(\w+<T>)<<<([^,]+),\s*([^,]+),.*?>>>\(", code, re.S)
+        # dynamic shared memory: the per-CTA buffer emu_launch allocates
+        code = re.sub(r"extern\s+__shared__[^;]*?(\w+)\[\];",
+                      r"unsigned char* \1 = g_dyn_smem;", code)
+        # kernel<<<grid, block, smem, stream>>>(args); -> emu_launch(...)
+        m = re.search(r"(\w+(?:<[^<>]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>\(", code, re.S)
         end = code.index(");", m.end())
-        code = (code[: m.start()] + f"emu_launch({m.group(2)}, {m.group(3)}, [&]() {{ "
-                f"{m.group(1)}(" + code[m.end():end] + "); });" + code[end + 2:])
+        code = (code[: m.start()] + f"emu_launch({m.group(2)}, {m.group(3)}, {m.group(4)}, "
+                f"[&]() {{ {m.group(1)}(" + code[m.end():end] + "); });" + code[end + 2:])
         cpp = os.path.join(workdir, f"{name}.cpp")
         with open(cpp, "w") as f:
             f.write(code)
         so = os.path.join(workdir, f"lib{name}.so")
         subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-Wall",
                         "-o", so, cpp], check=True)
-        libs[name] = ctypes.CDLL(so)
-        for sfx, T in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
-            fn = getattr(libs[name], f"gtsam_{name}_{sfx}")
-            fn.argtypes = build._SIGNATURES[name](T)
-            fn.restype = ctypes.c_int
+        libs[name] = build.declare(ctypes.CDLL(so), name)
     return libs
 
 
@@ -118,6 +128,43 @@ def emulated_partial_cholesky(lib, Fm, gm, nf, d):
     assert err == 0
     out["bad"] = int(bad.sum())
     return out
+
+
+def emulated_smem(lib, entry, F, g, nf, ns, d, u_shape, ug_shape):
+    """K3 (entry "smem": F [B, m, m]) or K4 (entry "blocks": F as blocks)."""
+    B, dt = g.shape[0], F.dtype
+    fd, sd = nf * d, ns * d
+    out = dict(L=np.empty((B, fd, fd), dt), Linv=np.empty((B, nf, d, d), dt),
+               W=np.empty((B, fd, sd), dt), y=np.empty((B, fd), dt),
+               U=np.empty(u_shape, dt), ug=np.empty(ug_shape, dt))
+    bad = np.empty(B, np.int32)
+    fn = getattr(lib, f"gtsam_partial_cholesky_{entry}_" + ("f64" if dt == np.float64 else "f32"))
+    err = fn(_ptr(F), _ptr(g), *(_ptr(out[k]) for k in ("L", "Linv", "W", "y", "U", "ug")),
+             _ptr(bad), B, nf, ns, d, 1e-10, None)
+    assert err == 0
+    out["bad"] = int(bad.sum())
+    return out
+
+
+def check_smem_kernels(lib, Fm, gm, nf, ns, d, tol):
+    """K3 and K4 against their plain versions; max error over both."""
+    B, mb, sd = Fm.shape[0], nf + ns, ns * d
+    tF, tg = torch.tensor(Fm), torch.tensor(gm)
+    ref3 = cholesky.partial_cholesky_plain(tF, tg, nf, d)
+    got3 = emulated_smem(lib, "smem", Fm, gm, nf, ns, d, (B, sd, sd), (B, sd))
+    Fb = np.ascontiguousarray(cholesky.blocks_from_dense(tF, mb, d).numpy())
+    gb = gm.reshape(B, mb, d)
+    ref4 = cholesky.partial_cholesky_blocks_plain(torch.tensor(Fb), torch.tensor(gb), nf, ns, d)
+    got4 = emulated_smem(lib, "blocks", Fb.reshape(-1, d, d), gb, nf, ns, d,
+                         (B, ns * ns, d, d), (B, ns, d))
+    ref4["U"], ref4["ug"] = ref4["U_blocks"], ref4["ug_blocks"]
+    err = 0.0
+    for got, ref in ((got3, ref3), (got4, ref4)):
+        assert got["bad"] == int(ref["bad"]), (got["bad"], int(ref["bad"]))
+        err = max([err] + [float(np.abs(got[k] - ref[k].numpy()).max())
+                           for k in ("L", "Linv", "W", "y", "U", "ug") if got[k].size])
+    assert err < tol, (B, nf, ns, d, err)
+    return err, got3["bad"]
 
 
 def emulated_backsolve(lib, L, Linv, W, y, xs, nf, d):
@@ -150,8 +197,12 @@ def main():
                 x = emulated_backsolve(libs["backsolve"], *args, xs, nf, d)
                 e2 = float(np.abs(x - x_ref.numpy()).max())
                 assert e2 < TOL[dt], (B, nf, ns, d, e2)
+                e34 = "does not fit shared memory"
+                if cholesky.fits_smem(nf, ns, d, np.dtype(dt).itemsize):
+                    e34 = "max err %.2e" % check_smem_kernels(
+                        libs["partial_cholesky_smem"], Fm, gm, nf, ns, d, TOL[dt])[0]
                 print(f"{np.dtype(dt).name} B={B} nf={nf} ns={ns} d={d}: "
-                      f"K1 max err {e1:.2e}, K2 max err {e2:.2e}")
+                      f"K1 max err {e1:.2e}, K2 max err {e2:.2e}, K3/K4 {e34}")
         B, nf, ns, d = 2, 2, 1, 3
         m = (nf + ns) * d
         A = rng.standard_normal((B, m, m))
@@ -161,7 +212,9 @@ def main():
         nb = emulated_partial_cholesky(libs["partial_cholesky"], Fm, gm, nf, d)["bad"]
         nb_ref = int(kernels.partial_cholesky(torch.tensor(Fm), torch.tensor(gm), nf, d)["bad"])
         assert nb == nb_ref >= 1, (nb, nb_ref)
-        print(f"indefinite bucket: {nb} clamped pivots, as the plain version")
+        _, nb34 = check_smem_kernels(libs["partial_cholesky_smem"], Fm, gm, nf, ns, d, np.inf)
+        assert nb34 == nb_ref, (nb34, nb_ref)
+        print(f"indefinite bucket: {nb} clamped pivots in K1, K3 and K4, as the plain version")
     return 0
 
 
