@@ -10,13 +10,20 @@ a result line:
   1. card    name and power limit (nvidia-smi); TF32 off for matmul and cuDNN
   2. build   nvcc builds every kernel of the paths from gtsam_petercdev_torch/csrc
   3. kernels each of the four CUDA kernels against its plain PyTorch version
-             on the card, in float64 and float32: K1 (bucket partial Cholesky,
-             working copy in global memory) and K2 (fused backsolve) at every
-             bucket shape of the sphere and bundle-adjustment plans, K3
-             (per-clique partial Cholesky in shared memory) and K4 (its
-             block-pool variant) at every such shape that fits shared memory,
-             plus an indefinite case (equal bad-pivot counts); kernel and
-             plain times per sweep of the buckets the routing gives each kernel
+             on the card, in float64 and float32: K1 (bucket partial Cholesky
+             for large fronts: factor, column-slab solve and tiled Schur
+             update, three launches) and K2 (fused backsolve) at every bucket
+             shape of the sphere and bundle-adjustment plans, K3 (per-clique
+             partial Cholesky in shared memory, then the tiled Schur update)
+             and K4 (its block-pool variant) at every such shape that fits
+             shared memory, plus K1 fronts past shared memory (one whose
+             packed F11 exceeds it; nf = 32 at d = 16, whose column-slab
+             solve exceeds it too) and indefinite buckets with the bad
+             pivot in the first and in a later diagonal block (equal
+             bad-pivot counts); kernel and plain times per sweep of the
+             buckets the routing gives each kernel, and per bucket for K1
+             and K3; at the sphere root, a composite of library calls
+             beside K1 (informational)
   4. sphere  the synthetic 2,500-pose / 4,949-factor Pose3 sphere through the
              port's entry points: gauss_newton (f64, solver="multifrontal")
              and levenberg_marquardt, launch counters reset just before and
@@ -58,21 +65,34 @@ MEM_BPS = 3.35e12
 PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 # shapes of the JAX package's Pallas kernel tests, (B, nf, ns, d)
 PALLAS_TEST_SHAPES = [(3, 2, 1, 6), (4, 1, 0, 6), (2, 4, 3, 6), (5, 3, 2, 3)]
+# K1 fronts past shared memory in float64: packed F11 too large (the global
+# branch of the factor stage); nf = 32 (the planner's max_supernode) at
+# d = 16, whose slab and staged block columns are too large as well (the
+# in-place branch of the solve stage); and the sphere plan's root
+EXTRA_SHAPES = [(1, 30, 8, 9), (1, 32, 8, 16), (1, 32, 96, 6)]
+SPHERE_ROOT = (1, 32, 96, 6)
+# indefinite buckets (B, nf, ns, d, diagonal entry set to -5): the bad pivot
+# in the first diagonal block, and in a later one
+INDEFINITE = [(3, 2, 1, 6, 0), (2, 3, 2, 9, 10)]
 FACTOR_KEYS = ("L", "Linv", "W", "y", "U", "ug")
 
 KERNELS = {
-    # name: (source, TPU kernel it replaces, CUDA kernel name in the profile)
+    # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
     "partial_cholesky": ("gtsam_petercdev_torch/csrc/partial_cholesky.cu",
-                         "gtsam_petercdev_tpu/ops/cholesky_v2.py:256", "partial_cholesky_kernel"),
+                         "gtsam_petercdev_tpu/ops/cholesky_v2.py:256",
+                         ("factor_kernel", "solve_kernel", "schur_update_kernel")),
     "backsolve_bucket": ("gtsam_petercdev_torch/csrc/backsolve.cu",
-                         "gtsam_petercdev_tpu/ops/cholesky_v2.py:347", "backsolve_kernel"),
+                         "gtsam_petercdev_tpu/ops/cholesky_v2.py:347", ("backsolve_kernel",)),
     "partial_cholesky_smem": ("gtsam_petercdev_torch/csrc/partial_cholesky_smem.cu",
                               "gtsam_petercdev_tpu/ops/cholesky.py:197",
-                              "partial_cholesky_smem_kernel"),
+                              ("partial_cholesky_smem_kernel", "schur_update_kernel")),
     "partial_cholesky_blocks": ("gtsam_petercdev_torch/csrc/partial_cholesky_smem.cu",
                                 "gtsam_petercdev_tpu/ops/cholesky.py:369",
-                                "partial_cholesky_smem_kernel"),
+                                ("partial_cholesky_smem_kernel",)),
 }
+# the Schur-complement stage K1 and K3 launch after their factor stages
+STAGE_SOURCES = {"partial_cholesky": ["gtsam_petercdev_torch/csrc/schur_update.cu"],
+                 "partial_cholesky_smem": ["gtsam_petercdev_torch/csrc/schur_update.cu"]}
 ROUTE_KERNEL = {"global": "partial_cholesky", "smem": "partial_cholesky_smem",
                 "blocks": "partial_cholesky_blocks"}
 
@@ -139,8 +159,8 @@ def event_ms(torch, sweep, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def profiled_kernel_ms(torch, sweep, kernel_name):
-    """Device time of the named kernel in one sweep from torch.profiler,
+def profiled_kernel_ms(torch, sweep, kernel_names):
+    """Device time of the named kernels in one sweep from torch.profiler,
     None when the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -149,7 +169,7 @@ def profiled_kernel_ms(torch, sweep, kernel_name):
         torch.cuda.synchronize()
     total = 0.0
     for evt in prof.key_averages():
-        if kernel_name in evt.key:
+        if any(name in evt.key for name in kernel_names):
             total += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
     return total / 1e3 if total > 0 else None
 
@@ -208,17 +228,22 @@ def check_kernels(torch, mods, cases, timed):
                 ("L", "Linv", "W", "y", "U_blocks", "ug_blocks"), TOL[name], "K4 " + what))
         torch.cuda.synchronize()
 
-        # indefinite bucket: clamped pivots counted identically by all three
-        B, nf, ns, d = cases[0]
-        F, g = spd_bucket(torch, gen, B, (nf + ns) * d, dtype)
-        F[0, 0, 0] = -5.0
-        Fb = v1.blocks_from_dense(F, nf + ns, d).contiguous().view(-1, d, d)
-        bad = [int(kernels.partial_cholesky(F, g, nf, d)["bad"]),
-               int(v2.partial_cholesky(F, g, nf, d)["bad"]),
-               int(v1.partial_cholesky(F, g, nf, d)["bad"]),
-               int(v1.partial_cholesky_blocks(Fb, g.view(B, nf + ns, d), nf, ns, d)["bad"])]
-        if not (bad[0] >= 1 and len(set(bad)) == 1):
-            raise AssertionError(f"indefinite case: bad (plain, K1, K3, K4) = {bad}")
+        # indefinite buckets: clamped pivots counted identically by the plain
+        # version and all three factor kernels, the bad pivot in the first
+        # diagonal block and in a later one
+        for B, nf, ns, d, row in INDEFINITE:
+            F, g = spd_bucket(torch, gen, B, (nf + ns) * d, dtype)
+            F[0, row, row] = -5.0
+            Fb = v1.blocks_from_dense(F, nf + ns, d).contiguous().view(-1, d, d)
+            bad = [int(kernels.partial_cholesky(F, g, nf, d)["bad"]),
+                   int(v2.partial_cholesky(F, g, nf, d)["bad"]),
+                   int(v1.partial_cholesky(F, g, nf, d)["bad"]),
+                   int(v1.partial_cholesky_blocks(Fb, g.view(B, nf + ns, d), nf, ns, d)["bad"])]
+            if not (bad[0] >= 1 and len(set(bad)) == 1):
+                raise AssertionError(f"indefinite case {(B, nf, ns, d)} entry {row}: bad "
+                                     f"(plain, K1, K3, K4) = {bad}")
+            log(f"indefinite {name} {(B, nf, ns, d)}, -5 on diagonal entry {row} (block "
+                f"{row // d}): bad pivots (plain, K1, K3, K4) = {bad}")
 
         # times: plain, kernel, kernel, plain within this one call
         for kname in KERNELS:
@@ -253,9 +278,26 @@ def check_kernels(torch, mods, cases, timed):
             k_2 = event_ms(torch, sweep_k, 10)
             p2 = event_ms(torch, sweep_p, 2)
             b_ms, b_by = bound([cost(B, nf, ns, d, itemsize) for B, nf, ns, d in sweep_cases], name)
+            v1.reset_launch_counts()
+            sweep_k()
+            calls, cuda = v1.launch_counts()[kname], v1.cuda_launch_counts()[kname]
             r = dict(max_abs_err=errs[kname], ms=min(k_1, k_2), plain_ms=min(p1, p2),
                      device_ms=profiled_kernel_ms(torch, sweep_k, KERNELS[kname][2]),
-                     bound_ms=b_ms, bound_by=b_by, buckets_timed=len(sweep_cases))
+                     bound_ms=b_ms, bound_by=b_by, buckets_timed=len(sweep_cases),
+                     sweep_cuda_launches_per_bucket=cuda / calls if calls else None)
+            if kname in ("partial_cholesky", "partial_cholesky_smem"):
+                # each bucket alone: CUDA events over 10 back-to-back calls
+                # (the host's time where it exceeds the card's), and the
+                # device time of its kernels (torch.profiler, 3 calls)
+                r["per_bucket"] = [
+                    dict(shape=c, ms=event_ms(torch, lambda a=a: fn(*a), 10),
+                         device_ms=(profiled_kernel_ms(torch, lambda a=a: [fn(*a) for _ in range(3)],
+                                                       KERNELS[kname][2]) or 0.0) / 3,
+                         bound_ms=bound([cost(*c, itemsize)], name)[0])
+                    for c, a in zip(sweep_cases, inputs)]
+                log(f"per-bucket {kname} {name} (B, nf, ns, d): ms / device ms [bound ms]: "
+                    + "; ".join(f"{tuple(b['shape'])} {b['ms']:.4f} / {b['device_ms']:.4f} "
+                                f"[{b['bound_ms']:.4f}]" for b in r["per_bucket"]))
             if kname in ("partial_cholesky_smem", "partial_cholesky_blocks"):
                 # the same buckets through K1 (for K4: the relayout to
                 # [B, m, m] that K4 saves, then K1), as the path ran them before
@@ -273,10 +315,31 @@ def check_kernels(torch, mods, cases, timed):
             f"{k} err {v[name]['max_abs_err']:.2e} ms {v[name]['ms']:.3f} "
             f"(device {v[name]['device_ms']}) plain {v[name]['plain_ms']:.3f} "
             f"bound {v[name]['bound_ms']:.4f} ({v[name]['bound_by']}) over "
-            f"{v[name]['buckets_timed']} buckets"
+            f"{v[name]['buckets_timed']} buckets, {v[name]['sweep_cuda_launches_per_bucket']} CUDA "
+            f"launches a bucket"
             + (f" K1 on the same buckets {v[name]['k1_same_buckets_ms']:.3f}"
                if "k1_same_buckets_ms" in v[name] else "")
             for k, v in res.items()))
+        # the sphere root: K1 beside a composite of library calls computing
+        # the same outputs (informational; the port never calls it)
+        B, nf, ns, d = SPHERE_ROOT
+        F, g = spd_bucket(torch, gen, B, (nf + ns) * d, dtype)
+        fd = nf * d
+
+        def composite():
+            L, _ = torch.linalg.cholesky_ex(F[:, :fd, :fd])
+            R = torch.linalg.solve_triangular(
+                L, torch.cat([F[:, :fd, fd:], g[:, :fd, None]], dim=2), upper=False)
+            W, y = R[:, :, :-1], R[:, :, -1:]
+            return (torch.baddbmm(F[:, fd:, fd:], W.transpose(1, 2), W, alpha=-1.0),
+                    torch.baddbmm(g[:, fd:, None], W.transpose(1, 2), y, alpha=-1.0))
+
+        c_ms = event_ms(torch, composite, 10)
+        k_ms = event_ms(torch, lambda: v2.partial_cholesky(F, g, nf, d), 10)
+        res["partial_cholesky"][name]["library_composite_ms_sphere_root"] = c_ms
+        res["partial_cholesky"][name]["sphere_root_ms"] = k_ms
+        log(f"sphere root {SPHERE_ROOT} {name}: K1 {k_ms:.4f} ms; library composite ms "
+            f"{c_ms:.4f} (cholesky_ex + solve_triangular + baddbmm; informational)")
     return res
 
 
@@ -307,10 +370,16 @@ def profile_step(torch, step, values, top=12):
 
     step(values)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(values)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # twice, keeping the profile that saw more launches: the profiler can
+    # drop a share of a step's ~3,000 kernel events
+    kern, prof = [], None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            step(values)
+            torch.cuda.synchronize()
+        k = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in k) > sum(e.count for e in kern):
+            kern, prof = k, p
     if not kern:
         return None
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in kern),
@@ -406,12 +475,27 @@ def main():
     for line in build.build_all(verbose=True):
         log(line)
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    # the f64 Schur update runs on the FP64 tensor cores: DMMA in its SASS
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", build.library_path("schur_update")],
+                              capture_output=True, text=True, timeout=120).stdout
+        n_dmma = sum("DMMA" in ln for ln in sass.splitlines())
+        log(f"schur_update SASS (cuobjdump): {n_dmma} DMMA instructions")
+        if n_dmma == 0:
+            raise AssertionError("the f64 Schur update has no DMMA instruction")
 
     if kernels_only:
-        cases = PALLAS_TEST_SHAPES + [(395, 1, 4, 6), (2, 12, 16, 6), (1, 32, 96, 6),
-                                      (5000, 1, 4, 9), (3, 1, 0, 9), (2, 3, 24, 9), (1, 12, 24, 9)]
+        cases = PALLAS_TEST_SHAPES + EXTRA_SHAPES + [
+            (395, 1, 4, 6), (2, 12, 16, 6), (5000, 1, 4, 9), (3, 1, 0, 9), (2, 3, 24, 9),
+            (1, 12, 24, 9), (1, 24, 0, 9)]
         timed = {n: {k: [(5000, 1, 4, 9), (2, 3, 8, 9)] for k in KERNELS}
                  for n in ("float64", "float32")}
+        for n in timed:  # a few buckets of the bench plans for the two redesigned kernels
+            timed[n]["partial_cholesky"] = [SPHERE_ROOT, (2, 12, 96, 6), (1, 12, 24, 9),
+                                            (1, 24, 0, 9)]
+            timed[n]["partial_cholesky_smem"] = [(105, 1, 6, 9), (1, 2, 24, 9), (71, 1, 6, 6),
+                                                 (1, 24, 0, 6)]
         check_kernels(torch, (v2, v1, kernels), cases, timed)
         log(f"kernels-only check passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -482,7 +566,7 @@ def main():
     all_maps = ((bench_maps, 6), (opt_maps, 6), (ba_bench_maps, 9), (ba_maps[2], 9))
     cases = list(dict.fromkeys(
         [(bm.B, bm.nf, bm.ns, d) for maps, d in all_maps for bm in maps.buckets]
-        + PALLAS_TEST_SHAPES))
+        + PALLAS_TEST_SHAPES + EXTRA_SHAPES))
     timed = {}
     for name, itemsize in (("float64", 8), ("float32", 4)):
         timed[name] = {k: [] for k in KERNELS}
@@ -502,9 +586,10 @@ def main():
                              device="cuda")
     torch.cuda.synchronize()
     sphere_launches = v1.launch_counts()
+    sphere_cuda = v1.cuda_launch_counts()
     log(f"GN: error {gn.error_history[0]:.6e} -> {gn.error:.6e} in {gn.iterations} iterations")
     log(f"LM: error {lm.error_history[0]:.6e} -> {lm.error:.6e} in {lm.iterations} iterations")
-    log(f"launches on the sphere path: {sphere_launches}")
+    log(f"launches on the sphere path: {sphere_launches}; CUDA launches {sphere_cuda}")
     check_result(gn, "sphere GN")
     check_result(lm, "sphere LM")
     p = gn.values.params("Pose3")
@@ -576,9 +661,11 @@ def main():
                     and all(torch.isfinite(a).all() for a in (cam.R, cam.t, cam.cal, pts))):
                 raise AssertionError(f"BA LM {name} {solver}: result is not finite")
     ba_launches = v1.launch_counts()
-    log(f"launches on the BA path: {ba_launches}")
+    ba_cuda = v1.cuda_launch_counts()
+    log(f"launches on the BA path: {ba_launches}; CUDA launches {ba_cuda}")
     launches = {k: sphere_launches[k] + ba_launches[k] for k in KERNELS}
-    log(f"launches on the main paths: {launches}")
+    cuda_launches = {k: sphere_cuda[k] + ba_cuda[k] for k in KERNELS}
+    log(f"launches on the main paths: {launches}; CUDA launches {cuda_launches}")
     # each path runs all four kernels (its plan has a leaf bucket, buckets
     # that fit shared memory and, in float64, fronts that do not)
     for path, counts in (("sphere", sphere_launches), ("BA", ba_launches)):
@@ -646,12 +733,18 @@ def main():
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
+        for r in (f64, f32):
+            r.pop("per_bucket", None)  # printed above, one line per kernel and dtype
+            r.pop("sweep_cuda_launches_per_bucket")  # printed above; the main paths' count below
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches[kname], max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
             launches_sphere_path=sphere_launches[kname], launches_ba_path=ba_launches[kname],
+            cuda_launches=cuda_launches[kname],
+            cuda_launches_per_bucket=cuda_launches[kname] / max(1, launches[kname]),
+            stage_sources=STAGE_SOURCES.get(kname, []),
             k1_same_buckets_ms=f64.get("k1_same_buckets_ms"),
             timed=f"one sweep of the {f64['buckets_timed']} buckets the routing gives this "
                   f"kernel in the sphere and BA bench plans",

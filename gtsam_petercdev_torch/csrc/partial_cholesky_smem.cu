@@ -1,5 +1,5 @@
 // K3 and K4: per-clique partial Cholesky with the clique's working copy in
-// shared memory, one CTA per clique (sm_90a).
+// shared memory (sm_90a).
 //
 // K3 replaces the Pallas TPU kernel gtsam_petercdev_tpu/ops/cholesky.py
 // `partial_cholesky` (`_kernel`, one grid program per clique, working copy in
@@ -16,48 +16,54 @@
 //                    inference/kernels.py exactly.
 // The two share one body (as `_kernel` and `_kernel_blocks` share `col_step`)
 // and differ in how F is read and U / ug are written:
-//   K3 (kBlocks = false): F [B, m, m] dense, U [B, sd, sd], ug [B, sd];
+//   K3 (kBlocks = false): F [B, m, m] dense; this kernel stops after W and y,
+//       and U [B, sd, sd], ug [B, sd] come from schur_update.cu, a second
+//       launch with grid (B, 64 x 64 tiles of U's lower triangle);
 //   K4 (kBlocks = true):  F as the pool slice [B * mb * mb, d, d] of row-major
 //       d x d blocks (mb = nf + ns), g [B, mb, d]; U as [B, ns * ns, d, d]
-//       blocks, ug [B, ns, d]. No [B, m, m] tensor exists for its buckets.
+//       blocks, ug [B, ns, d], formed here. No [B, m, m] tensor exists for
+//       its buckets.
 //
-// Design (correctness first). Grid = B, one CTA per clique. Dynamic shared
-// memory holds the working copy S = [F11 | F12 | g1] (fd x (m+1), row-major),
-// the current panel P (fd x d), the diagonal block's factor and its inverse
-// (d x d each) and the bad-pivot counter: (fd (m+1) + fd d + 2 d^2) elements
-// + 16 bytes, up to the card's 227 KB per CTA (the launcher raises the
-// kernel's dynamic limit above 48 KB). The wrapper's `fits_smem` is the same
-// formula; a clique that does not fit is refused there. Each F element of the
-// first fd rows is read from global memory once, the F22 part once more when
-// U is formed; nothing but the outputs is written. Per block column j,
-// separated by __syncthreads():
-//   (a) one thread factors the d x d diagonal block with the clamped pivot
-//       rule and inverts it by forward substitution;
-//   (b) threads stride over the panel P = A[below, j] Linv_j^T (to L and to
+// Design. Grid = B, one CTA per clique. Dynamic shared memory holds the
+// working copy S = [F11 | F12 | g1] (fd x (m+1), row-major), the current
+// panel P (fd x d), the diagonal block's factor and its inverse (d x d each)
+// and the bad-pivot counter: (fd (m+1) + fd d + 2 d^2) elements + 16 bytes,
+// up to the card's 227 KB per CTA (the launcher raises the kernel's dynamic
+// limit above 48 KB). The wrapper's `fits_smem` is the same formula; a
+// clique that does not fit is refused there. Each F element of the first fd
+// rows is read from global memory once; nothing but the outputs is written.
+// Per block column j, separated by __syncthreads():
+//   (1) threads stride over the panel P = A[below, j] Linv_j^T (to L and to
 //       shared memory) and over the RHS columns, y_j = Linv_j R_j;
-//   (c) threads stride over the RHS update R -= P y_j and the trailing SYRK
-//       A -= P P^T (lower triangle), all operands in shared memory.
-// Then W, y leave the working copy and U, ug are formed from it.
+//   (2) warp 0 applies the SYRK update to the next diagonal block and
+//       factors it with the clamped pivot rule, inverting it by forward
+//       substitution, lane r holding row r and exchanging by shuffles
+//       (factor_common.cuh), while the other warps stride over the RHS
+//       update R -= P y_j and the rest of the trailing SYRK A -= P P^T
+//       (lower triangle), all operands in shared memory.
+// Block 0's diagonal block is factored before the loop (one block of
+// lookahead: the d-step chain of each diagonal factor hides behind (2)).
+// Then W, y leave the working copy (and, in K4, U and ug are formed).
 //
-// What bounds it on an H100: bytes. The bundle-adjustment leaf bucket
+// What bounds it on an H100. K4: bytes. The bundle-adjustment leaf bucket
 // (50,000 cliques, nf = 1, ns = 4, d = 9) moves 16 KB (f64) of pool in and
-// 13 KB out per clique for ~0.02 MFLOP, far below the card's balance point.
-// The kernel reads and writes each byte once, so its distance from the
-// floor is occupancy and latency: a leaf clique needs 3.4 KB of shared
-// memory and 64 threads, so ~32 cliques share an SM.
-//
-// First things to improve: several tiny cliques per CTA (one warp each), the
-// diagonal block factored by a warp instead of one thread, and tensor-core
-// products for the large K3 fronts.
+// 13 KB out per clique for ~0.02 MFLOP; a leaf clique needs 3.4 KB of shared
+// memory and 64 threads, so ~32 cliques share an SM. K3: bytes too, but its
+// buckets are small (the BA plan's 123 K3 buckets hold 792 cliques, 51 of
+// them with B = 1), so one CTA per clique left most SMs idle while one
+// thread factored each diagonal block and the same CTA formed U
+// (fd sd^2 FMA, the bulk of the flops) with scalar FMAs. The block-column
+// chain stays on one CTA per clique; the diagonal block is now a warp's,
+// overlapped with the update, its loops unrolled for d = 6 and 9 (template
+// KD), and K3's U is spread over the card by schur_update.cu.
 
 #include <cuda_runtime.h>
 
+#include "factor_common.cuh"
+
 namespace {
 
-constexpr int kMaxD = 16;
-
-__device__ inline float sqrt_t(float x) { return sqrtf(x); }
-__device__ inline double sqrt_t(double x) { return sqrt(x); }
+using namespace gtsam_cuda;
 
 // shared-memory elements of type T one clique needs (then 16 bytes more)
 __host__ __device__ inline size_t smem_elems(int nf, int ns, int d) {
@@ -65,12 +71,50 @@ __host__ __device__ inline size_t smem_elems(int nf, int ns, int d) {
   return fd * (m + 1) + fd * d + 2 * (size_t)d * d;
 }
 
-template <typename T, bool kBlocks>
+// Warp 0: the diagonal block at rows / cols t0 .. t0 + d of the working
+// copy. With a panel P (rows t0.. final) it first applies the pending SYRK
+// update S -= P P^T to the block, in registers; then it factors and inverts
+// the block (factor_common.cuh) into sD (lower, zeros above) and sLinv, and
+// counts clamped pivots into *sBad.
+template <typename T>
+__device__ inline void factor_diag(const T* S, int ld, int t0, const T* P, int d, T eps, T* sD,
+                                   T* sLinv, int* sBad, int lane) {
+  T row[kMaxD], inv[kMaxD];
+#pragma unroll
+  for (int c = 0; c < kMaxD; ++c) {
+    row[c] = T(0);
+    if (lane < d && c <= lane) {
+      T v = S[(size_t)(t0 + lane) * ld + t0 + c];
+      if (P != nullptr) {
+        T acc = T(0);
+        for (int q = 0; q < d; ++q) acc += P[(size_t)(t0 + lane) * d + q] * P[(size_t)(t0 + c) * d + q];
+        v -= acc;
+      }
+      row[c] = v;
+    }
+  }
+  const int nbad = warp_factor_diag_any(row, inv, d, eps, lane);
+  if (lane < d) {
+#pragma unroll
+    for (int c = 0; c < kMaxD; ++c) {
+      if (c < d) {
+        sD[lane * d + c] = c <= lane ? row[c] : T(0);
+        sLinv[c * d + lane] = inv[c];
+      }
+    }
+  }
+  if (lane == 0) *sBad += nbad;
+}
+
+// KD: the block size d where the launcher specialises it (6, 9), so the
+// loops over a block unroll with constant trip counts; kMaxD for any d.
+template <typename T, bool kBlocks, int KD>
 __global__ void __launch_bounds__(1024) partial_cholesky_smem_kernel(
     const T* __restrict__ F, const T* __restrict__ g, T* __restrict__ L,
     T* __restrict__ Linv, T* __restrict__ W, T* __restrict__ y,
     T* __restrict__ U, T* __restrict__ ug, int* __restrict__ bad, int nf,
     int ns, int d, T eps) {
+  if (KD < kMaxD) d = KD;
   const int mb = nf + ns, fd = nf * d, sd = ns * d, m = fd + sd, ld = m + 1;
   const int dd = d * d;
   const size_t b = blockIdx.x;
@@ -106,42 +150,15 @@ __global__ void __launch_bounds__(1024) partial_cholesky_smem_kernel(
   if (tid == 0) *sBad = 0;
   __syncthreads();
 
+  if (tid < 32) factor_diag(S, ld, 0, static_cast<const T*>(nullptr), d, eps, sD, sLinv, sBad, tid);
+  __syncthreads();
+
+  // Block column j, its diagonal block already factored into sD / sLinv
+  // (lookahead: warp 0 factors block j + 1 during step (2) of block j)
   for (int j = 0; j < nf; ++j) {
     const int jd = j * d;
 
-    // (a) factor + invert the diagonal block (d <= 16: one thread)
-    if (tid == 0) {
-      for (int r = 0; r < d; ++r)
-        for (int c = 0; c <= r; ++c)
-          sD[r * d + c] = S[(size_t)(jd + r) * ld + jd + c];
-      int nbad = 0;
-      for (int k = 0; k < d; ++k) {
-        T p = sD[k * d + k];
-        if (p <= eps) {  // clamp-and-count, eps = 1e-10 in both types
-          ++nbad;
-          p = eps;
-        }
-        const T piv = sqrt_t(p);
-        sD[k * d + k] = piv;
-        for (int i = k + 1; i < d; ++i) sD[i * d + k] = sD[i * d + k] / piv;
-        for (int i = k + 1; i < d; ++i)
-          for (int c = k + 1; c <= i; ++c)
-            sD[i * d + c] -= sD[i * d + k] * sD[c * d + k];
-      }
-      for (int c = 0; c < d; ++c) {  // L^-1 by forward substitution
-        for (int r = 0; r < c; ++r) sLinv[r * d + c] = T(0);
-        sLinv[c * d + c] = T(1) / sD[c * d + c];
-        for (int r = c + 1; r < d; ++r) {
-          T acc = T(0);
-          for (int k = c; k < r; ++k) acc += sD[r * d + k] * sLinv[k * d + c];
-          sLinv[r * d + c] = -acc / sD[r * d + r];
-        }
-      }
-      *sBad += nbad;
-    }
-    __syncthreads();
-
-    // (b) L's block column j: zeros above, the factor, the panel below
+    // (1) L's block column j: zeros above, the factor, the panel below
     for (int e = tid; e < fd * d; e += nt) {
       const int i = e / d, c = e - i * d;
       T v = T(0);
@@ -167,23 +184,30 @@ __global__ void __launch_bounds__(1024) partial_cholesky_smem_kernel(
     }
     __syncthreads();
 
-    // (c) RHS update and trailing SYRK on rows below the block
+    // (2) warp 0 updates and factors the next diagonal block (sD / sLinv
+    // are not read in this step); the other warps apply the RHS update to
+    // the rows below the block and the trailing SYRK to the rows below the
+    // next one
     const int t0 = jd + d, nrow = fd - t0, ncol = sd + 1;
-    for (int e = tid; e < nrow * ncol; e += nt) {
-      const int i = t0 + e / ncol, col = fd + e % ncol;
-      const T* Pi = sP + (size_t)i * d;
-      T acc = T(0);
-      for (int k = 0; k < d; ++k) acc += Pi[k] * S[(size_t)(jd + k) * ld + col];
-      S[(size_t)i * ld + col] -= acc;
-    }
-    for (int e = tid; e < nrow * nrow; e += nt) {
-      const int ii = e / nrow, kk = e - ii * nrow;
-      if (kk > ii) continue;  // lower triangle only
-      const T* Pi = sP + (size_t)(t0 + ii) * d;
-      const T* Pk = sP + (size_t)(t0 + kk) * d;
-      T acc = T(0);
-      for (int q = 0; q < d; ++q) acc += Pi[q] * Pk[q];
-      S[(size_t)(t0 + ii) * ld + t0 + kk] -= acc;
+    if (tid < 32) {
+      if (j + 1 < nf) factor_diag(S, ld, t0, sP, d, eps, sD, sLinv, sBad, tid);
+    } else {
+      for (int e = tid - 32; e < nrow * ncol; e += nt - 32) {
+        const int i = t0 + e / ncol, col = fd + e % ncol;
+        const T* Pi = sP + (size_t)i * d;
+        T acc = T(0);
+        for (int k = 0; k < d; ++k) acc += Pi[k] * S[(size_t)(jd + k) * ld + col];
+        S[(size_t)i * ld + col] -= acc;
+      }
+      for (int e = tid - 32; e < (nrow - d) * nrow; e += nt - 32) {
+        const int ii = d + e / nrow, kk = e % nrow;
+        if (kk > ii) continue;  // lower triangle only
+        const T* Pi = sP + (size_t)(t0 + ii) * d;
+        const T* Pk = sP + (size_t)(t0 + kk) * d;
+        T acc = T(0);
+        for (int q = 0; q < d; ++q) acc += Pi[q] * Pk[q];
+        S[(size_t)(t0 + ii) * ld + t0 + kk] -= acc;
+      }
     }
     __syncthreads();
   }
@@ -197,36 +221,29 @@ __global__ void __launch_bounds__(1024) partial_cholesky_smem_kernel(
   }
   for (int i = tid; i < fd; i += nt) yb[i] = S[(size_t)i * ld + m];
 
-  // Schur complement U = F22 - W^T W; e runs in the OUTPUT's memory order
-  // (dense rows, or block by block), and F22 is read straight from F
-  T* Ub = U + b * (size_t)sd * sd;
-  for (int e = tid; e < sd * sd; e += nt) {
-    int a, c;
-    size_t src;
-    if (kBlocks) {
+  if constexpr (kBlocks) {
+    // K4's Schur complement U = F22 - W^T W, block by block in the output's
+    // memory order, F22 read straight from the pool
+    T* Ub = U + b * (size_t)sd * sd;
+    for (int e = tid; e < sd * sd; e += nt) {
       const int blk = e / dd, r = (e - blk * dd) / d, cc = e - blk * dd - r * d;
       const int ab = blk / ns, cb = blk - ab * ns;
-      a = ab * d + r;
-      c = cb * d + cc;
-      src = ((size_t)(nf + ab) * mb + nf + cb) * dd + r * d + cc;
-    } else {
-      a = e / sd;
-      c = e - a * sd;
-      src = (size_t)(fd + a) * m + fd + c;
+      const int a = ab * d + r, c = cb * d + cc;
+      const size_t src = ((size_t)(nf + ab) * mb + nf + cb) * dd + r * d + cc;
+      const T* Wa = S + fd + a;
+      const T* Wc = S + fd + c;
+      T acc = T(0);
+      for (int f = 0; f < fd; ++f) acc += Wa[(size_t)f * ld] * Wc[(size_t)f * ld];
+      Ub[e] = Fb[src] - acc;
     }
-    const T* Wa = S + fd + a;
-    const T* Wc = S + fd + c;
-    T acc = T(0);
-    for (int f = 0; f < fd; ++f) acc += Wa[(size_t)f * ld] * Wc[(size_t)f * ld];
-    Ub[e] = Fb[src] - acc;
-  }
-  // ug = g2 - W^T y ([sd] and [ns, d] are the same memory order)
-  T* ugb = ug + b * (size_t)sd;
-  for (int a = tid; a < sd; a += nt) {
-    T acc = T(0);
-    for (int f = 0; f < fd; ++f)
-      acc += S[(size_t)f * ld + fd + a] * S[(size_t)f * ld + m];
-    ugb[a] = gb[fd + a] - acc;
+    // ug = g2 - W^T y ([ns, d] is [sd]'s memory order)
+    T* ugb = ug + b * (size_t)sd;
+    for (int a = tid; a < sd; a += nt) {
+      T acc = T(0);
+      for (int f = 0; f < fd; ++f)
+        acc += S[(size_t)f * ld + fd + a] * S[(size_t)f * ld + m];
+      ugb[a] = gb[fd + a] - acc;
+    }
   }
   if (tid == 0) bad[b] = *sBad;
 }
@@ -239,7 +256,9 @@ int launch(const void* F, const void* g, void* L, void* Linv, void* W, void* y,
   if (d <= 0 || d > kMaxD || nf <= 0 || ns < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_elems(nf, ns, d) * sizeof(T) + 16;
-  auto kern = partial_cholesky_smem_kernel<T, kBlocks>;
+  auto kern = d == 6 ? partial_cholesky_smem_kernel<T, kBlocks, 6>
+                     : (d == 9 ? partial_cholesky_smem_kernel<T, kBlocks, 9>
+                               : partial_cholesky_smem_kernel<T, kBlocks, kMaxD>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -2,8 +2,9 @@
 
 Each source in `csrc/` is compiled on first use by its own `nvcc` process
 (all started together) for sm_90a into `gtsam_petercdev_torch/_build/`, then
-loaded with ctypes. The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+loaded with ctypes. The library's file name carries a hash of its source, the
+headers in `HEADERS` and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.
 Only the sources in this repository are compiled.
 
 The C entry points take every pointer and the stream as `void*` and return
@@ -30,7 +31,10 @@ SOURCES = {
     "partial_cholesky": "partial_cholesky.cu",
     "backsolve": "backsolve.cu",
     "partial_cholesky_smem": "partial_cholesky_smem.cu",
+    "schur_update": "schur_update.cu",
 }
+# device code the sources include (part of every library's hash)
+HEADERS = ["factor_common.cuh"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,14 +48,20 @@ _I = ctypes.c_int
 # F, g, L, Linv, W, y, U, ug, bad, B, nf, ns, d, eps, stream
 _SMEM_SIGNATURE = lambda T: [_P] * 9 + [_I] * 4 + [T, _P]
 _SIGNATURES = {
-    # F, g, scratch, L, Linv, W, y, U, ug, bad, B, nf, ns, d, eps, stream
-    "partial_cholesky": {"gtsam_partial_cholesky": lambda T: [_P] * 10 + [_I] * 4 + [T, _P]},
+    "partial_cholesky": {
+        # F, scratch, L, Linv, bad, B, nf, m, d, eps, packed, threads, smem, stream
+        "gtsam_k1_factor": lambda T: [_P] * 5 + [_I] * 4 + [T] + [_I] * 3 + [_P],
+        # F, g, L, Linv, W, y, B, nf, m, d, slabs, staged, smem, stream
+        "gtsam_k1_solve": lambda T: [_P] * 6 + [_I] * 7 + [_P],
+    },
     # L, Linv, W, y, xs, x, B, nf, ns, d, stream
     "backsolve": {"gtsam_backsolve": lambda T: [_P] * 6 + [_I] * 4 + [_P]},
     "partial_cholesky_smem": {
         "gtsam_partial_cholesky_smem": _SMEM_SIGNATURE,
         "gtsam_partial_cholesky_blocks": _SMEM_SIGNATURE,
     },
+    # F, g, W, y, U, ug, B, fd, sd, tiles, stream
+    "schur_update": {"gtsam_schur_update": lambda T: [_P] * 6 + [_I] * 4 + [_P]},
 }
 
 _LOCK = threading.Lock()
@@ -66,8 +76,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [SOURCES[name]] + HEADERS:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    h = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{h}.so")
 
 

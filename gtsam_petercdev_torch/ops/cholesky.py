@@ -5,7 +5,9 @@ Port of gtsam_petercdev_tpu/ops/cholesky.py (`partial_cholesky`,
 `partial_cholesky_blocks`). Both kernels are one hand-written CUDA source
 for sm_90a, `csrc/partial_cholesky_smem.cu`: one CTA per clique, the
 clique's working copy [F11 | F12 | g1] resident in shared memory as it was
-resident in VMEM on the TPU (the source notes say what bounds them).
+resident in VMEM on the TPU (the source notes say what bounds them). K4
+forms U in that CTA; K3 stops after W and y and forms U and ug in a second
+launch over 64 x 64 tiles of U (`ops/schur_update.py`).
 
   partial_cholesky         F [B, m, m], g [B, m]  ->  L, Linv, W, y, U, ug, bad
   partial_cholesky_blocks  F as the elimination pool slice [B*mb*mb, d, d]
@@ -19,7 +21,8 @@ tensor's device alone: a CPU tensor takes the plain PyTorch version, a CUDA
 tensor launches the kernel or raises — a clique that does not fit raises
 too; nothing is handed to another kernel or to the plain version.
 
-Each wrapper counts its launches in `<wrapper>.launches`.
+Each wrapper counts its calls that launch in `<wrapper>.launches` and the
+CUDA launches they make in `<wrapper>.cuda_launches`.
 """
 
 from __future__ import annotations
@@ -27,11 +30,9 @@ from __future__ import annotations
 import torch
 
 from gtsam_petercdev_torch.inference import kernels
-from gtsam_petercdev_torch.ops import build, cholesky_v2
-from gtsam_petercdev_torch.ops.cholesky_v2 import MAX_D, _check_cuda, _ptr, _raise_on
-
-# dynamic shared memory a CTA can use on sm_90 (227 KB)
-SMEM_LIMIT = 232_448
+from gtsam_petercdev_torch.ops import build, cholesky_v2, schur_update
+from gtsam_petercdev_torch.ops.cholesky_v2 import (MAX_D, SMEM_LIMIT, _check_cuda, _ptr,
+                                                   _raise_on)
 
 
 def smem_bytes(nf: int, ns: int, d: int, itemsize: int) -> int:
@@ -47,9 +48,10 @@ def fits_smem(nf: int, ns: int, d: int, itemsize: int) -> bool:
     return 0 < d <= MAX_D and smem_bytes(nf, ns, d, itemsize) <= SMEM_LIMIT
 
 
-def _launch(wrapper, entry, F, g, B, nf, ns, d, eps, u_shape, ug_shape):
+def _launch(wrapper, entry, F, g, B, nf, ns, d, eps, u_shape, ug_shape, schur):
     """Allocate the outputs and launch one entry point of the library for
-    `wrapper`, counting the launch on it."""
+    `wrapper` (then, with `schur`, the Schur-complement stage for U and
+    ug), counting the call and its CUDA launches on it."""
     name = wrapper.__name__
     if not fits_smem(nf, ns, d, F.element_size()):
         raise ValueError(
@@ -71,8 +73,10 @@ def _launch(wrapper, entry, F, g, B, nf, ns, d, eps, u_shape, ug_shape):
                 _ptr(ug), _ptr(bad), B, nf, ns, d, float(eps),
                 torch.cuda.current_stream().cuda_stream,
             )
-        _raise_on(err, name)
+            _raise_on(err, name)
+            n = 1 + (schur_update.launch(F, g, W, y, U, ug, sfx) if schur else 0)
         wrapper.launches += 1
+        wrapper.cuda_launches += n
     return L, Linv, W, y, U, ug, torch.sum(bad).to(torch.int32)
 
 
@@ -97,11 +101,12 @@ def partial_cholesky(Fm: torch.Tensor, gm: torch.Tensor, nf: int, d: int, eps=1e
                          f"{tuple(gm.shape)} nf={nf} d={d}")
     L, Linv, W, y, U, ug, bad = _launch(
         partial_cholesky, "gtsam_partial_cholesky_smem", Fm.contiguous(), gm.contiguous(),
-        B, nf, sd // d, d, eps, (B, sd, sd), (B, sd))
+        B, nf, sd // d, d, eps, (B, sd, sd), (B, sd), schur=True)
     return dict(L=L, Linv=Linv, W=W, y=y, U=U, ug=ug, bad=bad)
 
 
 partial_cholesky.launches = 0
+partial_cholesky.cuda_launches = 0
 
 
 # --- K4: block-pool layout -----------------------------------------------------
@@ -147,21 +152,31 @@ def partial_cholesky_blocks(Fblocks: torch.Tensor, gblocks: torch.Tensor, nf: in
                          f"gblocks {tuple(gblocks.shape)} nf={nf} ns={ns} d={d}")
     L, Linv, W, y, U, ug, bad = _launch(
         partial_cholesky_blocks, "gtsam_partial_cholesky_blocks", Fblocks.contiguous(),
-        gblocks.contiguous(), B, nf, ns, d, eps, (B, ns * ns, d, d), (B, ns, d))
+        gblocks.contiguous(), B, nf, ns, d, eps, (B, ns * ns, d, d), (B, ns, d), schur=False)
     return dict(L=L, Linv=Linv, W=W, y=y, U_blocks=U, ug_blocks=ug, bad=bad)
 
 
 partial_cholesky_blocks.launches = 0
+partial_cholesky_blocks.cuda_launches = 0
+
+
+_WRAPPERS = {
+    "partial_cholesky": lambda: cholesky_v2.partial_cholesky,
+    "backsolve_bucket": lambda: cholesky_v2.backsolve_bucket,
+    "partial_cholesky_smem": lambda: partial_cholesky,
+    "partial_cholesky_blocks": lambda: partial_cholesky_blocks,
+}
 
 
 def launch_counts() -> dict:
-    """Launches of the four bucket kernels since the last reset."""
-    return {
-        "partial_cholesky": cholesky_v2.partial_cholesky.launches,
-        "backsolve_bucket": cholesky_v2.backsolve_bucket.launches,
-        "partial_cholesky_smem": partial_cholesky.launches,
-        "partial_cholesky_blocks": partial_cholesky_blocks.launches,
-    }
+    """Wrapper calls that launched, per bucket kernel, since the last reset."""
+    return {k: fn().launches for k, fn in _WRAPPERS.items()}
+
+
+def cuda_launch_counts() -> dict:
+    """CUDA launches those calls made (K1: 3 a bucket, K3: 2; 1 fewer
+    where the bucket has no separator)."""
+    return {k: fn().cuda_launches for k, fn in _WRAPPERS.items()}
 
 
 reset_launch_counts = cholesky_v2.reset_launch_counts

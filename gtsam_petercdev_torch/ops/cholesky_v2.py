@@ -2,25 +2,40 @@
 
 Port of gtsam_petercdev_tpu/ops/cholesky_v2.py (`partial_cholesky`,
 `backsolve_bucket`). The kernels are hand-written CUDA C++ for sm_90a in
-`csrc/partial_cholesky.cu` and `csrc/backsolve.cu`, one CTA per clique
-(the source notes say what bounds them).
+`csrc/partial_cholesky.cu` with `csrc/schur_update.cu`, and
+`csrc/backsolve.cu` (the source notes say what bounds them).
+
+K1 is three launches per bucket (`k1_plan` gives their grids): (a) the
+factor of F11, one CTA per clique, F11's lower triangle packed in shared
+memory where it fits 227 KB, else in a global scratch copy; (b) the
+triangular solve for W and y over column slabs of [F12 | g1], staged in
+shared memory where it fits, else in place in W and y; (c) U and ug over
+64 x 64 tiles (`ops/schur_update.py`). The branches are chosen by shape.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`inference/kernels.py`), a CUDA tensor launches the kernel
 or raises. There is no fallback and no switch; on the card every bucket,
 the largest front included, goes through the kernel.
 
-Each wrapper counts its launches in `<wrapper>.launches`.
+Each wrapper counts its calls that launch in `<wrapper>.launches` and the
+CUDA launches they make in `<wrapper>.cuda_launches`.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from gtsam_petercdev_torch.inference import kernels
-from gtsam_petercdev_torch.ops import build
+from gtsam_petercdev_torch.ops import build, schur_update
 
 MAX_D = 16  # block size the kernels' shared-memory tiles hold
+# dynamic shared memory a CTA can use on sm_90 (227 KB)
+SMEM_LIMIT = 232_448
+SLAB = 32  # columns of [F12 | g1] per stage-(b) CTA (partial_cholesky.cu kSlab)
+SOLVE_THREADS = 512  # partial_cholesky.cu kSolveThreads
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -48,6 +63,51 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def packed_smem_bytes(fd: int, d: int, itemsize: int) -> int:
+    """Stage (a)'s dynamic shared memory with F11 packed: the lower
+    triangle, two diagonal blocks' inverses, 16 bytes for the pivot count."""
+    return (fd * (fd + 1) // 2 + 2 * d * d) * itemsize + 16
+
+
+def solve_smem_bytes(fd: int, d: int, itemsize: int) -> int:
+    """Stage (b)'s dynamic shared memory with the slab staged: y_j [d, SLAB],
+    the slab [fd, SLAB], and two buffers of L's block column [fd, d] and its
+    block's inverse."""
+    return (d * SLAB + fd * SLAB + 2 * fd * d + 2 * d * d) * itemsize
+
+
+class K1Plan(NamedTuple):
+    """The three launches of K1 for one bucket."""
+    packed: bool  # stage (a) holds F11 packed in shared memory (else global scratch)
+    factor_grid: int  # B
+    factor_threads: int
+    factor_smem: int
+    solve_staged: bool  # stage (b) stages the slab and L in shared memory (else in place)
+    solve_grid: tuple  # (B, slabs)
+    solve_smem: int
+    schur_grid: tuple  # (B, tiles); tiles == 0 when sd == 0 (no launch)
+
+    @property
+    def cuda_launches(self) -> int:
+        return 2 + (self.schur_grid[1] > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def k1_plan(B: int, nf: int, ns: int, d: int, itemsize: int) -> K1Plan:
+    """Grids and shared memory of K1's launches, by shape alone; any front
+    size has a plan (the branches that do not fit shared memory work in
+    global memory)."""
+    fd, sd = nf * d, ns * d
+    packed = packed_smem_bytes(fd, d, itemsize) <= SMEM_LIMIT
+    staged = solve_smem_bytes(fd, d, itemsize) <= SMEM_LIMIT
+    return K1Plan(
+        packed=packed, factor_grid=B, factor_threads=512 if fd >= 96 else 256,
+        factor_smem=packed_smem_bytes(fd, d, itemsize) if packed else 2 * d * d * itemsize + 16,
+        solve_staged=staged, solve_grid=(B, -(-(sd + 1) // SLAB)),
+        solve_smem=solve_smem_bytes(fd, d, itemsize) if staged else d * SLAB * itemsize,
+        schur_grid=(B, schur_update.n_tiles(sd)))
+
+
 def partial_cholesky(Fm: torch.Tensor, gm: torch.Tensor, nf: int, d: int, eps=1e-10):
     """Whole-bucket partial Cholesky; same contract as
     kernels.partial_cholesky (dict of L, Linv, W, y, U, ug, bad)."""
@@ -56,31 +116,39 @@ def partial_cholesky(Fm: torch.Tensor, gm: torch.Tensor, nf: int, d: int, eps=1e
     B, m, _ = Fm.shape
     fd = nf * d
     sd = m - fd
-    if not (0 < d <= MAX_D) or sd < 0 or sd % d or gm.shape != (B, m):
+    if not (0 < d <= MAX_D) or nf <= 0 or sd < 0 or sd % d or gm.shape != (B, m):
         raise ValueError(f"partial_cholesky: bad shapes Fm {tuple(Fm.shape)} gm "
                          f"{tuple(gm.shape)} nf={nf} d={d}")
     Fm, gm = Fm.contiguous(), gm.contiguous()
     sfx = _check_cuda("partial_cholesky", Fm, gm)
+    plan = k1_plan(B, nf, sd // d, d, Fm.element_size())
     new = lambda *shape: torch.empty(shape, dtype=Fm.dtype, device=Fm.device)
     L, Linv, W, y = new(B, fd, fd), new(B, nf, d, d), new(B, fd, sd), new(B, fd)
     U, ug = new(B, sd, sd), new(B, sd)
-    scratch = new(B, fd, m + 1)  # per-clique working copy [F11 | F12 | g1]
     bad = torch.empty((B,), dtype=torch.int32, device=Fm.device)
     if B:
-        fn = getattr(build.load("partial_cholesky"), f"gtsam_partial_cholesky_{sfx}")
+        lib = build.load("partial_cholesky")
+        # F11's working copy: in shared memory, else this global scratch
+        scratch = None if plan.packed else new(B, fd, fd)
         with torch.cuda.device(Fm.device):
-            err = fn(
-                _ptr(Fm), _ptr(gm), _ptr(scratch), _ptr(L), _ptr(Linv), _ptr(W),
-                _ptr(y), _ptr(U), _ptr(ug), _ptr(bad), B, nf, sd // d, d, float(eps),
-                torch.cuda.current_stream().cuda_stream,
-            )
-        _raise_on(err, "partial_cholesky")
+            stream = torch.cuda.current_stream().cuda_stream
+            _raise_on(getattr(lib, f"gtsam_k1_factor_{sfx}")(
+                _ptr(Fm), None if scratch is None else _ptr(scratch), _ptr(L), _ptr(Linv),
+                _ptr(bad), B, nf, m, d, float(eps), int(plan.packed), plan.factor_threads,
+                plan.factor_smem, stream), "partial_cholesky (factor)")
+            _raise_on(getattr(lib, f"gtsam_k1_solve_{sfx}")(
+                _ptr(Fm), _ptr(gm), _ptr(L), _ptr(Linv), _ptr(W), _ptr(y), B, nf, m, d,
+                plan.solve_grid[1], int(plan.solve_staged), plan.solve_smem, stream),
+                "partial_cholesky (solve)")
+            n = 2 + schur_update.launch(Fm, gm, W, y, U, ug, sfx)
         partial_cholesky.launches += 1
+        partial_cholesky.cuda_launches += n
     return dict(L=L, Linv=Linv, W=W, y=y, U=U, ug=ug,
                 bad=torch.sum(bad).to(torch.int32))
 
 
 partial_cholesky.launches = 0
+partial_cholesky.cuda_launches = 0
 
 
 def backsolve_plain(L, Linv, W, y, xs, nf: int, d: int):
@@ -111,17 +179,19 @@ def backsolve_bucket(L, Linv, W, y, xs, nf: int, d: int):
             )
         _raise_on(err, "backsolve_bucket")
         backsolve_bucket.launches += 1
+        backsolve_bucket.cuda_launches += 1
     return x
 
 
 backsolve_bucket.launches = 0
+backsolve_bucket.cuda_launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set the launch counts of all four bucket kernels to 0 (K1 and K2
-    here, K3 and K4 in ops/cholesky.py)."""
+    """Set the launch counts (wrapper calls and CUDA launches) of all four
+    bucket kernels to 0 (K1 and K2 here, K3 and K4 in ops/cholesky.py)."""
     from gtsam_petercdev_torch.ops import cholesky
 
     for fn in (partial_cholesky, backsolve_bucket, cholesky.partial_cholesky,
                cholesky.partial_cholesky_blocks):
-        fn.launches = 0
+        fn.launches = fn.cuda_launches = 0

@@ -8,12 +8,26 @@ Each source in gtsam_petercdev_torch/csrc/ is compiled with g++ (C++20)
 against a small header that emulates what the kernels use: blocks run one
 after another, a block's threads run as std::threads, __syncthreads() is a
 std::barrier, __shared__ arrays are statics and dynamic shared memory is a
-per-CTA buffer of the size the launch asks for. The extern "C" entry points
-are then called through ctypes on numpy arrays and their outputs held
-against the plain PyTorch versions (inference/kernels.py, ops/cholesky.py)
-at a set of bucket shapes with d = 3, 6, 9 and 16, in float64 and float32,
-plus an indefinite bucket (equal bad-pivot counts). This checks indexing,
-phases and barriers; it says nothing about speed or about what nvcc accepts.
+per-CTA buffer of the size the launch asks for, grids may be 2-D, and a
+source may launch several kernels. Each warp of 32 threads has its own
+barrier and exchange slots: __syncwarp() and __shfl_sync() go through them,
+and so does the FP64 tensor-core product (`dmma_8x8x4` in
+csrc/factor_common.cuh), which the emulator computes from the 32 lanes'
+fragments laid out as the PTX ISA gives mma.m8n8k4 .f64 (lane 4g + t holds
+A[g][t] and B[t][g]; its accumulators are C[g][2t], C[g][2t+1]), so a kernel
+that assumed another layout fails here. cp.async copies at once. The
+extern "C" entry points are then called through ctypes on numpy arrays,
+with the launch plans of the Python wrappers (ops/cholesky_v2.py k1_plan,
+ops/schur_update.py n_tiles), and their outputs held against the plain
+PyTorch versions (inference/kernels.py, ops/cholesky.py) at a set of bucket
+shapes with d = 3, 6, 9 and 16, in float64 and float32 (the sphere root, a
+front whose packed F11 exceeds shared memory and the largest front the
+planner forms, whose solve stage exceeds it too, among them); K1 runs each
+shape twice, as planned and with both of its global-memory branches forced
+(they are the same code as the card takes past shared memory), plus indefinite
+buckets with the bad pivot in the first and in a later diagonal block
+(equal bad-pivot counts). This checks indexing, phases, barriers and
+fragment layouts; it says nothing about speed or about what nvcc accepts.
 """
 
 import ctypes
@@ -30,13 +44,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from gtsam_petercdev_torch.inference import kernels  # noqa: E402
-from gtsam_petercdev_torch.ops import build, cholesky, cholesky_v2  # noqa: E402
+from gtsam_petercdev_torch.ops import build, cholesky, cholesky_v2, schur_update  # noqa: E402
 
 FAKE_CUDA = r"""
 #pragma once
+#define GTSAM_EMULATE 1
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 #define __global__
@@ -48,30 +64,87 @@ FAKE_CUDA = r"""
 #define __align__(n)
 using std::sqrt;
 inline float sqrtf(float x) { return std::sqrt(x); }
-struct dim3_ { unsigned x = 0, y = 0, z = 0; };
-inline thread_local dim3_ threadIdx, blockIdx;
-inline dim3_ blockDim, gridDim;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
 typedef void* cudaStream_t;
-inline std::barrier<>* g_bar = nullptr;
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 inline int cudaGetLastError() { return 0; }
 template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
+
+// a CTA: its threads are std::threads, __syncthreads() a barrier over all of
+// them, and each warp of 32 has its own barrier and exchange slots, through
+// which __syncwarp, __shfl_sync and the DMMA product move values
+struct EmuWarp {
+  std::barrier<> bar{32};
+  alignas(8) unsigned char x[32][8];
+  double a[32], b[32];
+};
+inline std::barrier<>* g_bar = nullptr;
+inline thread_local EmuWarp* t_warp = nullptr;
+inline thread_local int t_lane = 0;
+inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { t_warp->bar.arrive_and_wait(); }
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  std::memcpy(t_warp->x[t_lane], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, t_warp->x[src & 31], sizeof(T));
+  __syncwarp();
+  return r;
+}
+// mma.sync.aligned.m8n8k4.row.col.f64 with the PTX ISA's fragment layout
+// (g = lane / 4, t = lane % 4): lane holds A[g][t] and B[t][g], and its
+// accumulators are C[g][2t] and C[g][2t+1]. So A[r][k] is lane 4r+k's a,
+// B[k][n] is lane 4n+k's b.
+inline void dmma_8x8x4(double& c0, double& c1, double a, double b) {
+  t_warp->a[t_lane] = a;
+  t_warp->b[t_lane] = b;
+  __syncwarp();
+  const int g = t_lane / 4, t = t_lane % 4;
+  for (int k = 0; k < 4; ++k) {
+    const double ark = t_warp->a[4 * g + k];
+    c0 += ark * t_warp->b[4 * (2 * t) + k];
+    c1 += ark * t_warp->b[4 * (2 * t + 1) + k];
+  }
+  __syncwarp();
+}
+template <class T>
+void cp_async_elem(T* smem, const T* gmem) { *smem = *gmem; }
+inline void cp_async_commit() {}
+template <int N>
+void cp_async_wait() {}
+
 inline unsigned char* g_dyn_smem = nullptr;
 template <class F>
-void emu_launch(int B, int nt, size_t smem, F body) {
-  blockDim.x = nt; gridDim.x = B;
-  for (int b = 0; b < B; ++b) {
-    std::barrier<> bar(nt);
-    g_bar = &bar;
-    std::vector<std::max_align_t> dyn(smem / sizeof(std::max_align_t) + 1);
-    g_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; ++t)
-      ts.emplace_back([&, b, t]() { blockIdx.x = b; threadIdx.x = t; body(); });
-    for (auto& th : ts) th.join();
+void emu_launch(dim3 grid, int nt, size_t smem, F body) {
+  if (nt % 32) throw "block size is not a whole number of warps";
+  blockDim = dim3(nt);
+  gridDim = grid;
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::barrier<> bar(nt);
+      g_bar = &bar;
+      std::vector<EmuWarp> warps(nt / 32);
+      std::vector<std::max_align_t> dyn(smem / sizeof(std::max_align_t) + 1);
+      g_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
+      std::vector<std::thread> ts;
+      for (int t = 0; t < nt; ++t)
+        ts.emplace_back([&, bx, by, t]() {
+          blockIdx = dim3(bx, by);
+          threadIdx = dim3(t);
+          t_warp = &warps[t / 32];
+          t_lane = t % 32;
+          body();
+        });
+      for (auto& th : ts) th.join();
+    }
   }
 }
 """
@@ -80,7 +153,11 @@ void emu_launch(int B, int nt, size_t smem, F body) {
 # 9 (the bundle-adjustment block size) and 16
 SHAPES = [(3, 2, 1, 6), (4, 1, 0, 6), (2, 4, 3, 6), (5, 3, 2, 3), (2, 12, 16, 6),
           (1, 8, 24, 6), (2, 4, 40, 6), (1, 32, 0, 6), (2, 3, 9, 16),
-          (6, 1, 4, 9), (3, 1, 0, 9), (2, 2, 3, 9), (1, 6, 6, 9)]
+          (6, 1, 4, 9), (3, 1, 0, 9), (2, 2, 3, 9), (1, 6, 6, 9),
+          # K1: the sphere root (19 solve slabs, 45 U tiles), a front whose
+          # packed F11 exceeds shared memory in float64, and nf = 32 at d = 16,
+          # whose solve stage exceeds it too (both global branches)
+          (1, 32, 96, 6), (1, 30, 8, 9), (1, 32, 8, 16)]
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
 
@@ -95,85 +172,134 @@ def compile_emulated(workdir):
         # dynamic shared memory: the per-CTA buffer emu_launch allocates
         code = re.sub(r"extern\s+__shared__[^;]*?(\w+)\[\];",
                       r"unsigned char* \1 = g_dyn_smem;", code)
-        # kernel<<<grid, block, smem, stream>>>(args); -> emu_launch(...)
-        m = re.search(r"(\w+(?:<[^<>]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>\(", code, re.S)
-        end = code.index(");", m.end())
-        code = (code[: m.start()] + f"emu_launch({m.group(2)}, {m.group(3)}, {m.group(4)}, "
-                f"[&]() {{ {m.group(1)}(" + code[m.end():end] + "); });" + code[end + 2:])
+        # every kernel<<<grid, block, smem, stream>>>(args); -> emu_launch(...)
+        launch = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>\(", re.S)
+        while (m := launch.search(code)) is not None:
+            end = code.index(");", m.end())
+            code = (code[: m.start()] + f"emu_launch({m.group(2)}, {m.group(3)}, {m.group(4)}, "
+                    f"[&]() {{ {m.group(1)}(" + code[m.end():end] + "); });" + code[end + 2:])
         cpp = os.path.join(workdir, f"{name}.cpp")
         with open(cpp, "w") as f:
             f.write(code)
         so = os.path.join(workdir, f"lib{name}.so")
         subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-Wall",
-                        "-o", so, cpp], check=True)
+                        "-Wno-unknown-pragmas", "-I", workdir, "-I", build.CSRC, "-o", so, cpp], check=True)
         libs[name] = build.declare(ctypes.CDLL(so), name)
     return libs
 
 
 def _ptr(a):
-    return a.ctypes.data if a.size else None
+    return a.ctypes.data if a is not None and a.size else None
 
 
-def emulated_partial_cholesky(lib, Fm, gm, nf, d):
+def _sfx(dt):
+    return "f64" if dt == np.float64 else "f32"
+
+
+def emulated_schur(lib, F, g, W, y, U, ug):
+    """The Schur-complement stage on K1's or K3's W and y (grid per
+    ops/schur_update.py)."""
+    B, fd, sd = W.shape
+    if B and sd:
+        fn = getattr(lib, "gtsam_schur_update_" + _sfx(W.dtype))
+        assert fn(*map(_ptr, (F, g, W, y, U, ug)), B, fd, sd, schur_update.n_tiles(sd),
+                  None) == 0
+
+
+def _outputs(B, nf, ns, d, dt, u_shape, ug_shape):
+    fd, sd = nf * d, ns * d
+    return dict(L=np.empty((B, fd, fd), dt), Linv=np.empty((B, nf, d, d), dt),
+                W=np.empty((B, fd, sd), dt), y=np.empty((B, fd), dt),
+                U=np.empty(u_shape, dt), ug=np.empty(ug_shape, dt))
+
+
+def emulated_partial_cholesky(libs, Fm, gm, nf, d, force_global=False):
+    """K1's three launches, planned by ops/cholesky_v2.py k1_plan; with
+    force_global, stages (a) and (b) take their global-memory branches."""
     B, m, _ = Fm.shape
     fd, dt = nf * d, Fm.dtype
-    sd = m - fd
-    out = dict(L=np.empty((B, fd, fd), dt), Linv=np.empty((B, nf, d, d), dt),
-               W=np.empty((B, fd, sd), dt), y=np.empty((B, fd), dt),
-               U=np.empty((B, sd, sd), dt), ug=np.empty((B, sd), dt))
-    S, bad = np.empty((B, fd, m + 1), dt), np.empty(B, np.int32)
-    fn = getattr(lib, "gtsam_partial_cholesky_" + ("f64" if dt == np.float64 else "f32"))
-    err = fn(_ptr(Fm), _ptr(gm), _ptr(S), *(_ptr(out[k]) for k in ("L", "Linv", "W", "y", "U", "ug")),
-             _ptr(bad), B, nf, sd // d, d, 1e-10, None)
-    assert err == 0
+    ns = (m - fd) // d
+    plan = cholesky_v2.k1_plan(B, nf, ns, d, Fm.itemsize)
+    if force_global:
+        plan = plan._replace(packed=False, factor_smem=2 * d * d * Fm.itemsize + 16,
+                             solve_staged=False, solve_smem=d * cholesky_v2.SLAB * Fm.itemsize)
+    out = _outputs(B, nf, ns, d, dt, (B, ns * d, ns * d), (B, ns * d))
+    scratch = None if plan.packed else np.empty((B, fd, fd), dt)
+    bad = np.empty(B, np.int32)
+    lib = libs["partial_cholesky"]
+    assert getattr(lib, "gtsam_k1_factor_" + _sfx(dt))(
+        _ptr(Fm), _ptr(scratch), _ptr(out["L"]), _ptr(out["Linv"]), _ptr(bad), B, nf, m, d,
+        1e-10, int(plan.packed), plan.factor_threads, plan.factor_smem, None) == 0
+    assert getattr(lib, "gtsam_k1_solve_" + _sfx(dt))(
+        _ptr(Fm), _ptr(gm), *(_ptr(out[k]) for k in ("L", "Linv", "W", "y")), B, nf, m, d,
+        plan.solve_grid[1], int(plan.solve_staged), plan.solve_smem, None) == 0
+    emulated_schur(libs["schur_update"], Fm, gm, out["W"], out["y"], out["U"], out["ug"])
     out["bad"] = int(bad.sum())
+    out["branch"] = (f"F11 {'packed in shared memory' if plan.packed else 'in global scratch'}, "
+                     f"solve {'staged' if plan.solve_staged else 'in place'}")
     return out
 
 
-def emulated_smem(lib, entry, F, g, nf, ns, d, u_shape, ug_shape):
-    """K3 (entry "smem": F [B, m, m]) or K4 (entry "blocks": F as blocks)."""
+def emulated_smem(libs, entry, F, g, nf, ns, d, u_shape, ug_shape):
+    """K3 (entry "smem": F [B, m, m], then the Schur stage) or K4 (entry
+    "blocks": F as blocks, U in the same launch)."""
     B, dt = g.shape[0], F.dtype
-    fd, sd = nf * d, ns * d
-    out = dict(L=np.empty((B, fd, fd), dt), Linv=np.empty((B, nf, d, d), dt),
-               W=np.empty((B, fd, sd), dt), y=np.empty((B, fd), dt),
-               U=np.empty(u_shape, dt), ug=np.empty(ug_shape, dt))
+    out = _outputs(B, nf, ns, d, dt, u_shape, ug_shape)
     bad = np.empty(B, np.int32)
-    fn = getattr(lib, f"gtsam_partial_cholesky_{entry}_" + ("f64" if dt == np.float64 else "f32"))
+    fn = getattr(libs["partial_cholesky_smem"], f"gtsam_partial_cholesky_{entry}_" + _sfx(dt))
     err = fn(_ptr(F), _ptr(g), *(_ptr(out[k]) for k in ("L", "Linv", "W", "y", "U", "ug")),
              _ptr(bad), B, nf, ns, d, 1e-10, None)
     assert err == 0
+    if entry == "smem":
+        emulated_schur(libs["schur_update"], F, g, out["W"], out["y"], out["U"], out["ug"])
     out["bad"] = int(bad.sum())
     return out
 
 
-def check_smem_kernels(lib, Fm, gm, nf, ns, d, tol):
-    """K3 and K4 against their plain versions; max error over both."""
+def _err(got, ref, keys=("L", "Linv", "W", "y", "U", "ug")):
+    return max([0.0] + [float(np.abs(got[k] - np.asarray(ref[k])).max())
+                        for k in keys if got[k].size])
+
+
+def check_smem_kernels(libs, Fm, gm, nf, ns, d, tol):
+    """K3 and K4 against their plain versions; max error over both, and
+    the bad-pivot count."""
     B, mb, sd = Fm.shape[0], nf + ns, ns * d
     tF, tg = torch.tensor(Fm), torch.tensor(gm)
     ref3 = cholesky.partial_cholesky_plain(tF, tg, nf, d)
-    got3 = emulated_smem(lib, "smem", Fm, gm, nf, ns, d, (B, sd, sd), (B, sd))
+    got3 = emulated_smem(libs, "smem", Fm, gm, nf, ns, d, (B, sd, sd), (B, sd))
     Fb = np.ascontiguousarray(cholesky.blocks_from_dense(tF, mb, d).numpy())
     gb = gm.reshape(B, mb, d)
     ref4 = cholesky.partial_cholesky_blocks_plain(torch.tensor(Fb), torch.tensor(gb), nf, ns, d)
-    got4 = emulated_smem(lib, "blocks", Fb.reshape(-1, d, d), gb, nf, ns, d,
+    got4 = emulated_smem(libs, "blocks", Fb.reshape(-1, d, d), gb, nf, ns, d,
                          (B, ns * ns, d, d), (B, ns, d))
     ref4["U"], ref4["ug"] = ref4["U_blocks"], ref4["ug_blocks"]
-    err = 0.0
     for got, ref in ((got3, ref3), (got4, ref4)):
         assert got["bad"] == int(ref["bad"]), (got["bad"], int(ref["bad"]))
-        err = max([err] + [float(np.abs(got[k] - ref[k].numpy()).max())
-                           for k in ("L", "Linv", "W", "y", "U", "ug") if got[k].size])
-    assert err < tol, (B, nf, ns, d, err)
+    err = max(_err(got3, ref3), _err(got4, ref4)) if tol < np.inf else np.nan
+    assert not err >= tol, (B, nf, ns, d, err)
+    assert np.array_equal(got3["U"], got3["U"].transpose(0, 2, 1), equal_nan=True), \
+        "K3's U is not symmetric"
     return err, got3["bad"]
 
 
 def emulated_backsolve(lib, L, Linv, W, y, xs, nf, d):
     B, fd, _ = L.shape
     x = np.empty((B, fd), L.dtype)
-    fn = getattr(lib, "gtsam_backsolve_" + ("f64" if L.dtype == np.float64 else "f32"))
+    fn = getattr(lib, "gtsam_backsolve_" + _sfx(L.dtype))
     assert fn(_ptr(L), _ptr(Linv), _ptr(W), _ptr(y), _ptr(xs), _ptr(x), B, nf,
               W.shape[2] // d, d, None) == 0
     return x
+
+
+def indefinite(rng, B, nf, ns, d, row, dt):
+    """A bucket whose diagonal entry `row` of clique 0 is -5: the pivot
+    there (and any that follow from it) is clamped and counted."""
+    m = (nf + ns) * d
+    A = rng.standard_normal((B, m, m))
+    Fm = A @ A.transpose(0, 2, 1)
+    Fm[0, row, row] = -5.0
+    return np.ascontiguousarray(Fm.astype(dt)), rng.standard_normal((B, m)).astype(dt)
 
 
 def main():
@@ -187,10 +313,13 @@ def main():
                 Fm = np.ascontiguousarray((A @ A.transpose(0, 2, 1) / m + np.eye(m)).astype(dt))
                 gm = rng.standard_normal((B, m)).astype(dt)
                 ref = kernels.partial_cholesky(torch.tensor(Fm), torch.tensor(gm), nf, d)
-                got = emulated_partial_cholesky(libs["partial_cholesky"], Fm, gm, nf, d)
-                e1 = max(float(np.abs(got[k] - ref[k].numpy()).max())
-                         for k in ("L", "Linv", "W", "y", "U", "ug") if got[k].size)
+                got = emulated_partial_cholesky(libs, Fm, gm, nf, d)
+                e1 = _err(got, ref)
                 assert got["bad"] == int(ref["bad"]) and e1 < TOL[dt], (B, nf, ns, d, e1)
+                assert np.array_equal(got["U"], got["U"].transpose(0, 2, 1)), "K1's U"
+                glob = emulated_partial_cholesky(libs, Fm, gm, nf, d, force_global=True)
+                e1g = _err(glob, ref)
+                assert glob["bad"] == int(ref["bad"]) and e1g < TOL[dt], (B, nf, ns, d, e1g)
                 args = [np.ascontiguousarray(ref[k].numpy()) for k in ("L", "Linv", "W", "y")]
                 xs = rng.standard_normal((B, ns * d)).astype(dt)
                 x_ref = cholesky_v2.backsolve_plain(*map(torch.tensor, args), torch.tensor(xs), nf, d)
@@ -199,22 +328,23 @@ def main():
                 assert e2 < TOL[dt], (B, nf, ns, d, e2)
                 e34 = "does not fit shared memory"
                 if cholesky.fits_smem(nf, ns, d, np.dtype(dt).itemsize):
-                    e34 = "max err %.2e" % check_smem_kernels(
-                        libs["partial_cholesky_smem"], Fm, gm, nf, ns, d, TOL[dt])[0]
-                print(f"{np.dtype(dt).name} B={B} nf={nf} ns={ns} d={d}: "
-                      f"K1 max err {e1:.2e}, K2 max err {e2:.2e}, K3/K4 {e34}")
-        B, nf, ns, d = 2, 2, 1, 3
-        m = (nf + ns) * d
-        A = rng.standard_normal((B, m, m))
-        Fm = np.ascontiguousarray(A @ A.transpose(0, 2, 1))
-        Fm[0, 0, 0] = -5.0
-        gm = rng.standard_normal((B, m))
-        nb = emulated_partial_cholesky(libs["partial_cholesky"], Fm, gm, nf, d)["bad"]
-        nb_ref = int(kernels.partial_cholesky(torch.tensor(Fm), torch.tensor(gm), nf, d)["bad"])
-        assert nb == nb_ref >= 1, (nb, nb_ref)
-        _, nb34 = check_smem_kernels(libs["partial_cholesky_smem"], Fm, gm, nf, ns, d, np.inf)
-        assert nb34 == nb_ref, (nb34, nb_ref)
-        print(f"indefinite bucket: {nb} clamped pivots in K1, K3 and K4, as the plain version")
+                    e34 = "max err %.2e" % check_smem_kernels(libs, Fm, gm, nf, ns, d, TOL[dt])[0]
+                print(f"{np.dtype(dt).name} B={B} nf={nf} ns={ns} d={d}: K1 ({got['branch']}) "
+                      f"max err {e1:.2e}, both global branches {e1g:.2e}, K2 max err {e2:.2e}, "
+                      f"K3/K4 {e34}", flush=True)
+            # indefinite buckets: the bad pivot in the first diagonal block,
+            # then in a later one; plain, K1, K3 and K4 count the same
+            for B, nf, ns, d, row in ((2, 2, 1, 3, 0), (2, 3, 1, 3, 4), (1, 3, 2, 9, 10)):
+                Fm, gm = indefinite(rng, B, nf, ns, d, row, dt)
+                nb_ref = int(kernels.partial_cholesky(torch.tensor(Fm), torch.tensor(gm), nf,
+                                                      d)["bad"])
+                nb = emulated_partial_cholesky(libs, Fm, gm, nf, d)["bad"]
+                nbg = emulated_partial_cholesky(libs, Fm, gm, nf, d, force_global=True)["bad"]
+                _, nb34 = check_smem_kernels(libs, Fm, gm, nf, ns, d, np.inf)
+                assert nb == nbg == nb34 == nb_ref >= 1, (nb, nbg, nb34, nb_ref)
+                print(f"{np.dtype(dt).name} indefinite bucket, -5 on diagonal entry {row} "
+                      f"(block {row // d}): {nb} clamped pivots in K1, K3 and K4, as the plain "
+                      f"version", flush=True)
     return 0
 
 
