@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (gtsam_petercdev_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 everything below
-    python3 chip_smoke.py --kernels-only  phases 1-3 at a few shapes, no result
-                                          line (a quick check after a kernel edit)
+    python3 chip_smoke.py --kernels-only  phases 1-3: checks at a dozen shapes,
+                                          times over the bench plans' buckets; no
+                                          result line (a check after a kernel edit)
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -21,9 +22,10 @@ a result line:
              solve exceeds it too) and indefinite buckets with the bad
              pivot in the first and in a later diagonal block (equal
              bad-pivot counts); kernel and plain times per sweep of the
-             buckets the routing gives each kernel, and per bucket for K1
-             and K3; at the sphere root, a composite of library calls
-             beside K1 (informational)
+             buckets the routing gives each kernel, and per bucket (events,
+             device time, bound) for all four; composites of library calls
+             beside K1 (sphere root) and K2 (sphere root, BA leaf),
+             informational
   4. sphere  the synthetic 2,500-pose / 4,949-factor Pose3 sphere through the
              port's entry points: gauss_newton (f64, solver="multifrontal")
              and levenberg_marquardt, launch counters reset just before and
@@ -71,6 +73,10 @@ PALLAS_TEST_SHAPES = [(3, 2, 1, 6), (4, 1, 0, 6), (2, 4, 3, 6), (5, 3, 2, 3)]
 # in-place branch of the solve stage); and the sphere plan's root
 EXTRA_SHAPES = [(1, 30, 8, 9), (1, 32, 8, 16), (1, 32, 96, 6)]
 SPHERE_ROOT = (1, 32, 96, 6)
+BA_LEAF = (50_000, 1, 4, 9)
+# the bench plans' bucket shapes and routes, as tools/bench_bucket_shapes.py
+# wrote them (the --kernels-only sweeps)
+BENCH_SHAPES = "tests/data/bench_bucket_shapes.json"
 # indefinite buckets (B, nf, ns, d, diagonal entry set to -5): the bad pivot
 # in the first diagonal block, and in a later one
 INDEFINITE = [(3, 2, 1, 6, 0), (2, 3, 2, 9, 10)]
@@ -82,13 +88,14 @@ KERNELS = {
                          "gtsam_petercdev_tpu/ops/cholesky_v2.py:256",
                          ("factor_kernel", "solve_kernel", "schur_update_kernel")),
     "backsolve_bucket": ("gtsam_petercdev_torch/csrc/backsolve.cu",
-                         "gtsam_petercdev_tpu/ops/cholesky_v2.py:347", ("backsolve_kernel",)),
+                         "gtsam_petercdev_tpu/ops/cholesky_v2.py:347",
+                         ("backsolve_warp_kernel", "backsolve_cluster_kernel")),
     "partial_cholesky_smem": ("gtsam_petercdev_torch/csrc/partial_cholesky_smem.cu",
                               "gtsam_petercdev_tpu/ops/cholesky.py:197",
                               ("partial_cholesky_smem_kernel", "schur_update_kernel")),
     "partial_cholesky_blocks": ("gtsam_petercdev_torch/csrc/partial_cholesky_smem.cu",
                                 "gtsam_petercdev_tpu/ops/cholesky.py:369",
-                                ("partial_cholesky_smem_kernel",)),
+                                ("partial_cholesky_blocks_kernel",)),
 }
 # the Schur-complement stage K1 and K3 launch after their factor stages
 STAGE_SOURCES = {"partial_cholesky": ["gtsam_petercdev_torch/csrc/schur_update.cu"],
@@ -120,9 +127,9 @@ def spd_bucket(torch, gen, B, m, dtype):
 
 
 def factor_cost(B, nf, ns, d, itemsize):
-    """Bytes and flops of one partial Cholesky of a bucket (K1, K3 and K4
-    alike: K4 reads the pool slice, which is F's m * m elements per clique,
-    and writes U / ug in block layout, the same number of elements)."""
+    """Bytes and flops of one partial Cholesky of a bucket from a dense
+    [B, m, m] F (K1 and K3): F and g read, L, Linv, W, y, U, ug and the
+    pivot counts written."""
     fd, sd = nf * d, ns * d
     m = fd + sd
     nbytes = itemsize * B * (m * m + m + fd * fd + nf * d * d + fd * sd + fd + sd * sd + sd) + 4 * B
@@ -130,7 +137,20 @@ def factor_cost(B, nf, ns, d, itemsize):
     return nbytes, flops
 
 
+def blocks_cost(B, nf, ns, d, itemsize):
+    """K4's bytes and flops: of the pool slice it must read only the first
+    nf block rows ([F11 | F12]) and F22 — F21 is F12's transpose and is
+    never read — and g; it writes what factor_cost counts."""
+    fd, sd = nf * d, ns * d
+    m = fd + sd
+    nbytes = itemsize * B * (fd * m + sd * sd + m + fd * fd + nf * d * d + fd * sd + fd
+                             + sd * sd + sd) + 4 * B
+    return nbytes, factor_cost(B, nf, ns, d, itemsize)[1]
+
+
 def backsolve_cost(B, nf, ns, d, itemsize):
+    """K2's bytes (L below its diagonal blocks, Linv, W, y, xs read; x
+    written) and flops."""
     fd, sd = nf * d, ns * d
     lower = fd * (fd - d) // 2  # the part of L below the diagonal blocks
     nbytes = itemsize * B * (lower + nf * d * d + fd * sd + fd + sd + fd)
@@ -269,7 +289,7 @@ def check_kernels(torch, mods, cases, timed):
                 "partial_cholesky_smem": (v1.partial_cholesky, v1.partial_cholesky_plain,
                                           factor_cost),
                 "partial_cholesky_blocks": (v1.partial_cholesky_blocks,
-                                            v1.partial_cholesky_blocks_plain, factor_cost),
+                                            v1.partial_cholesky_blocks_plain, blocks_cost),
             }[kname]
             sweep_k = lambda: [fn(*a) for a in inputs]
             sweep_p = lambda: [plain(*a) for a in inputs]
@@ -285,19 +305,20 @@ def check_kernels(torch, mods, cases, timed):
                      device_ms=profiled_kernel_ms(torch, sweep_k, KERNELS[kname][2]),
                      bound_ms=b_ms, bound_by=b_by, buckets_timed=len(sweep_cases),
                      sweep_cuda_launches_per_bucket=cuda / calls if calls else None)
-            if kname in ("partial_cholesky", "partial_cholesky_smem"):
-                # each bucket alone: CUDA events over 10 back-to-back calls
-                # (the host's time where it exceeds the card's), and the
-                # device time of its kernels (torch.profiler, 3 calls)
-                r["per_bucket"] = [
-                    dict(shape=c, ms=event_ms(torch, lambda a=a: fn(*a), 10),
-                         device_ms=(profiled_kernel_ms(torch, lambda a=a: [fn(*a) for _ in range(3)],
-                                                       KERNELS[kname][2]) or 0.0) / 3,
-                         bound_ms=bound([cost(*c, itemsize)], name)[0])
-                    for c, a in zip(sweep_cases, inputs)]
-                log(f"per-bucket {kname} {name} (B, nf, ns, d): ms / device ms [bound ms]: "
-                    + "; ".join(f"{tuple(b['shape'])} {b['ms']:.4f} / {b['device_ms']:.4f} "
-                                f"[{b['bound_ms']:.4f}]" for b in r["per_bucket"]))
+            # each bucket alone: CUDA events over 10 back-to-back calls
+            # (the host's time where it exceeds the card's), and the
+            # device time of its kernels (torch.profiler, 3 calls), against
+            # the bucket's bound
+            r["per_bucket"] = [
+                dict(shape=c, ms=event_ms(torch, lambda a=a: fn(*a), 10),
+                     device_ms=(profiled_kernel_ms(torch, lambda a=a: [fn(*a) for _ in range(3)],
+                                                   KERNELS[kname][2]) or 0.0) / 3,
+                     bound_ms=bound([cost(*c, itemsize)], name)[0])
+                for c, a in zip(sweep_cases, inputs)]
+            log(f"per-bucket {kname} {name} (B, nf, ns, d): ms / device ms [bound ms] (device "
+                f"sum {sum(b['device_ms'] for b in r['per_bucket']):.4f} ms): "
+                + "; ".join(f"{tuple(b['shape'])} {b['ms']:.4f} / {b['device_ms']:.4f} "
+                            f"[{b['bound_ms']:.4f}]" for b in r["per_bucket"]))
             if kname in ("partial_cholesky_smem", "partial_cholesky_blocks"):
                 # the same buckets through K1 (for K4: the relayout to
                 # [B, m, m] that K4 saves, then K1), as the path ran them before
@@ -340,6 +361,30 @@ def check_kernels(torch, mods, cases, timed):
         res["partial_cholesky"][name]["sphere_root_ms"] = k_ms
         log(f"sphere root {SPHERE_ROOT} {name}: K1 {k_ms:.4f} ms; library composite ms "
             f"{c_ms:.4f} (cholesky_ex + solve_triangular + baddbmm; informational)")
+
+        # K2 beside a composite of library calls computing the same x:
+        # baddbmm for y - W xs, then solve_triangular with L^T (informational;
+        # the port never calls it), at the sphere root and the BA leaf
+        for label, (B, nf, ns, d) in (("sphere_root", SPHERE_ROOT), ("ba_leaf", BA_LEAF)):
+            F, g = spd_bucket(torch, gen, B, (nf + ns) * d, dtype)
+            ref = kernels.partial_cholesky(F, g, nf, d)
+            del F, g
+            L, Linv, W, y = ref["L"], ref["Linv"], ref["W"].contiguous(), ref["y"].contiguous()
+            xs = torch.randn(B, ns * d, generator=gen, dtype=torch.float64, device="cuda").to(dtype)
+
+            def composite2():
+                r = torch.baddbmm(y[:, :, None], W, xs[:, :, None], alpha=-1.0)
+                return torch.linalg.solve_triangular(L.transpose(1, 2), r, upper=True)[:, :, 0]
+
+            kern2 = lambda: v2.backsolve_bucket(L, Linv, W, y, xs, nf, d)
+            x_k = kern2()
+            rel = ((composite2() - x_k).abs().max() / x_k.abs().max().clamp_min(1.0)).item()
+            c_ms, k_ms = event_ms(torch, composite2, 10), event_ms(torch, kern2, 10)
+            res["backsolve_bucket"][name][f"library_composite_ms_{label}"] = c_ms
+            res["backsolve_bucket"][name][f"{label}_ms"] = k_ms
+            log(f"{label} {(B, nf, ns, d)} {name}: K2 {k_ms:.4f} ms; library composite ms "
+                f"{c_ms:.4f} (baddbmm + solve_triangular; informational; agrees to rel {rel:.1e})")
+            del ref, L, Linv, W, y, xs
     return res
 
 
@@ -486,16 +531,22 @@ def main():
             raise AssertionError("the f64 Schur update has no DMMA instruction")
 
     if kernels_only:
+        # checked at a dozen shapes (the BA leaf, ragged K4 groups, both K2
+        # modes among them); timed over the bench plans' buckets as the full
+        # run times them, their shapes and routes read from BENCH_SHAPES
         cases = PALLAS_TEST_SHAPES + EXTRA_SHAPES + [
-            (395, 1, 4, 6), (2, 12, 16, 6), (5000, 1, 4, 9), (3, 1, 0, 9), (2, 3, 24, 9),
-            (1, 12, 24, 9), (1, 24, 0, 9)]
-        timed = {n: {k: [(5000, 1, 4, 9), (2, 3, 8, 9)] for k in KERNELS}
-                 for n in ("float64", "float32")}
-        for n in timed:  # a few buckets of the bench plans for the two redesigned kernels
-            timed[n]["partial_cholesky"] = [SPHERE_ROOT, (2, 12, 96, 6), (1, 12, 24, 9),
-                                            (1, 24, 0, 9)]
-            timed[n]["partial_cholesky_smem"] = [(105, 1, 6, 9), (1, 2, 24, 9), (71, 1, 6, 6),
-                                                 (1, 24, 0, 6)]
+            (395, 1, 4, 6), (2, 12, 16, 6), BA_LEAF, (17, 1, 4, 9), (9, 1, 3, 6), (3, 1, 0, 9),
+            (2, 3, 24, 9), (1, 12, 24, 9), (1, 24, 0, 9), (5, 3, 24, 9), (2, 24, 64, 6)]
+        with open(os.path.join(here, BENCH_SHAPES)) as f:
+            plans = json.load(f)
+        timed = {}
+        for name, col in (("float64", 3), ("float32", 4)):
+            timed[name] = {k: [] for k in KERNELS}
+            for plan in ("sphere", "ba"):
+                for b in plans[plan]["buckets"]:
+                    shape = (b[0], b[1], b[2], plans[plan]["d"])
+                    timed[name][ROUTE_KERNEL[b[col]]].append(shape)
+                    timed[name]["backsolve_bucket"].append(shape)
         check_kernels(torch, (v2, v1, kernels), cases, timed)
         log(f"kernels-only check passed in {time.perf_counter() - t_start:.1f} s")
         return 0

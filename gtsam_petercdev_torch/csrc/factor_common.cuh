@@ -103,4 +103,19 @@ __device__ inline void cp_async_wait() {
 }
 #endif
 
+// wait until at most n (0 .. 7, a uniform value) of this thread's cp.async
+// groups are still in flight: the depth of a ring chosen at run time
+__device__ inline void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
 }  // namespace gtsam_cuda

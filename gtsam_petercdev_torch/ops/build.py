@@ -45,8 +45,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # library -> {C entry point (before its _f32 / _f64 suffix): argtypes, given
 # T = the kernel's float type}
-# F, g, L, Linv, W, y, U, ug, bad, B, nf, ns, d, eps, stream
-_SMEM_SIGNATURE = lambda T: [_P] * 9 + [_I] * 4 + [T, _P]
 _SIGNATURES = {
     "partial_cholesky": {
         # F, scratch, L, Linv, bad, B, nf, m, d, eps, packed, threads, smem, stream
@@ -54,11 +52,14 @@ _SIGNATURES = {
         # F, g, L, Linv, W, y, B, nf, m, d, slabs, staged, smem, stream
         "gtsam_k1_solve": lambda T: [_P] * 6 + [_I] * 7 + [_P],
     },
-    # L, Linv, W, y, xs, x, B, nf, ns, d, stream
-    "backsolve": {"gtsam_backsolve": lambda T: [_P] * 6 + [_I] * 4 + [_P]},
+    # L, Linv, W, y, xs, x, B, nf, ns, d, warp_mode, grid, threads, cluster, rows,
+    # stages, smem, stream
+    "backsolve": {"gtsam_backsolve": lambda T: [_P] * 6 + [_I] * 11 + [_P]},
     "partial_cholesky_smem": {
-        "gtsam_partial_cholesky_smem": _SMEM_SIGNATURE,
-        "gtsam_partial_cholesky_blocks": _SMEM_SIGNATURE,
+        # F, g, L, Linv, W, y, bad, B, nf, ns, d, eps, stream
+        "gtsam_partial_cholesky_smem": lambda T: [_P] * 7 + [_I] * 4 + [T, _P],
+        # F, g, L, Linv, W, y, U, ug, bad, B, nf, ns, d, eps, G, threads, smem, stream
+        "gtsam_partial_cholesky_blocks": lambda T: [_P] * 9 + [_I] * 4 + [T] + [_I] * 3 + [_P],
     },
     # F, g, W, y, U, ug, B, fd, sd, tiles, stream
     "schur_update": {"gtsam_schur_update": lambda T: [_P] * 6 + [_I] * 4 + [_P]},

@@ -2,12 +2,14 @@
 variant (K4): CUDA wrappers and plain versions.
 
 Port of gtsam_petercdev_tpu/ops/cholesky.py (`partial_cholesky`,
-`partial_cholesky_blocks`). Both kernels are one hand-written CUDA source
-for sm_90a, `csrc/partial_cholesky_smem.cu`: one CTA per clique, the
-clique's working copy [F11 | F12 | g1] resident in shared memory as it was
-resident in VMEM on the TPU (the source notes say what bounds them). K4
-forms U in that CTA; K3 stops after W and y and forms U and ug in a second
-launch over 64 x 64 tiles of U (`ops/schur_update.py`).
+`partial_cholesky_blocks`). Both kernels are hand-written CUDA for sm_90a in
+one source, `csrc/partial_cholesky_smem.cu`, each clique's working copy
+[F11 | F12 | g1] resident in shared memory as it was resident in VMEM on the
+TPU (the source notes say what bounds them). K3 is one CTA per clique and
+stops after W and y; U and ug come from a second launch over 64 x 64 tiles
+of U (`ops/schur_update.py`). K4 is one launch with G cliques a CTA
+(`k4_plan`): a warp runs each clique's chain, the CTA copies the pool
+slice in and forms U and ug.
 
   partial_cholesky         F [B, m, m], g [B, m]  ->  L, Linv, W, y, U, ug, bad
   partial_cholesky_blocks  F as the elimination pool slice [B*mb*mb, d, d]
@@ -26,6 +28,9 @@ CUDA launches they make in `<wrapper>.cuda_launches`.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -48,36 +53,48 @@ def fits_smem(nf: int, ns: int, d: int, itemsize: int) -> bool:
     return 0 < d <= MAX_D and smem_bytes(nf, ns, d, itemsize) <= SMEM_LIMIT
 
 
-def _launch(wrapper, entry, F, g, B, nf, ns, d, eps, u_shape, ug_shape, schur):
-    """Allocate the outputs and launch one entry point of the library for
-    `wrapper` (then, with `schur`, the Schur-complement stage for U and
-    ug), counting the call and its CUDA launches on it."""
-    name = wrapper.__name__
-    if not fits_smem(nf, ns, d, F.element_size()):
-        raise ValueError(
-            f"{name}: clique nf={nf} ns={ns} d={d} needs "
-            f"{smem_bytes(nf, ns, d, F.element_size())} bytes of shared memory, "
-            f"the card has {SMEM_LIMIT} per CTA"
-        )
-    sfx = _check_cuda(name, F, g)
-    fd, sd = nf * d, ns * d
+K4_MAX_G = 8  # cliques per CTA
+K4_WARP_MAX_FD = 32  # a clique this small is one warp's (G > 1)
+
+
+class K4Plan(NamedTuple):
+    """The one launch of K4 for one bucket."""
+    cliques_per_cta: int  # G; each clique's chain is a warp's when G > 1, else the CTA's
+    grid: int
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def k4_plan(B: int, nf: int, ns: int, d: int, itemsize: int) -> K4Plan:
+    """Cliques per CTA, grid and shared memory of K4, by shape alone. A
+    clique of fd <= K4_WARP_MAX_FD shares its CTA with up to K4_MAX_G - 1
+    others, as many as leave room for four such CTAs on an SM; a larger one
+    has a CTA to itself (K3's thread count). Shared memory: G working copies
+    (`smem_bytes` less its 16-byte counter), then G int counters rounded up
+    to 16 bytes."""
+    fd, m = nf * d, (nf + ns) * d
+    per = smem_bytes(nf, ns, d, itemsize) - 16
+    G = 1
+    if fd <= K4_WARP_MAX_FD:
+        G = max(1, min(K4_MAX_G, B, SMEM_LIMIT // (4 * per)))
+    threads = 32 * G if G > 1 else (64 if fd * (m + 1) <= 1024 else (1024 if m >= 192 else 256))
+    return K4Plan(cliques_per_cta=G, grid=-(-B // G), threads=threads,
+                  smem=G * per + 16 * -(-G // 4))
+
+
+def _outputs(F, B, nf, ns, d, u_shape, ug_shape):
     new = lambda *shape: torch.empty(shape, dtype=F.dtype, device=F.device)
-    L, Linv, W, y = new(B, fd, fd), new(B, nf, d, d), new(B, fd, sd), new(B, fd)
-    U, ug = new(*u_shape), new(*ug_shape)
-    bad = torch.empty((B,), dtype=torch.int32, device=F.device)
-    if B:
-        fn = getattr(build.load("partial_cholesky_smem"), f"{entry}_{sfx}")
-        with torch.cuda.device(F.device):
-            err = fn(
-                _ptr(F), _ptr(g), _ptr(L), _ptr(Linv), _ptr(W), _ptr(y), _ptr(U),
-                _ptr(ug), _ptr(bad), B, nf, ns, d, float(eps),
-                torch.cuda.current_stream().cuda_stream,
-            )
-            _raise_on(err, name)
-            n = 1 + (schur_update.launch(F, g, W, y, U, ug, sfx) if schur else 0)
-        wrapper.launches += 1
-        wrapper.cuda_launches += n
-    return L, Linv, W, y, U, ug, torch.sum(bad).to(torch.int32)
+    fd, sd = nf * d, ns * d
+    return (new(B, fd, fd), new(B, nf, d, d), new(B, fd, sd), new(B, fd), new(*u_shape),
+            new(*ug_shape), torch.empty((B,), dtype=torch.int32, device=F.device))
+
+
+def _refuse_large(name, nf, ns, d, itemsize):
+    if not fits_smem(nf, ns, d, itemsize):
+        raise ValueError(
+            f"{name}: clique nf={nf} ns={ns} d={d} needs {smem_bytes(nf, ns, d, itemsize)} "
+            f"bytes of shared memory, the card has {SMEM_LIMIT} per CTA")
 
 
 # --- K3: dense frontal matrices ---------------------------------------------
@@ -99,10 +116,20 @@ def partial_cholesky(Fm: torch.Tensor, gm: torch.Tensor, nf: int, d: int, eps=1e
     if d <= 0 or nf <= 0 or sd < 0 or sd % d or gm.shape != (B, m):
         raise ValueError(f"partial_cholesky: bad shapes Fm {tuple(Fm.shape)} gm "
                          f"{tuple(gm.shape)} nf={nf} d={d}")
-    L, Linv, W, y, U, ug, bad = _launch(
-        partial_cholesky, "gtsam_partial_cholesky_smem", Fm.contiguous(), gm.contiguous(),
-        B, nf, sd // d, d, eps, (B, sd, sd), (B, sd), schur=True)
-    return dict(L=L, Linv=Linv, W=W, y=y, U=U, ug=ug, bad=bad)
+    _refuse_large("partial_cholesky", nf, sd // d, d, Fm.element_size())
+    Fm, gm = Fm.contiguous(), gm.contiguous()
+    sfx = _check_cuda("partial_cholesky", Fm, gm)
+    L, Linv, W, y, U, ug, bad = _outputs(Fm, B, nf, sd // d, d, (B, sd, sd), (B, sd))
+    if B:
+        fn = getattr(build.load("partial_cholesky_smem"), f"gtsam_partial_cholesky_smem_{sfx}")
+        with torch.cuda.device(Fm.device):
+            _raise_on(fn(_ptr(Fm), _ptr(gm), _ptr(L), _ptr(Linv), _ptr(W), _ptr(y), _ptr(bad),
+                         B, nf, sd // d, d, float(eps), torch.cuda.current_stream().cuda_stream),
+                      "partial_cholesky")
+            n = 1 + schur_update.launch(Fm, gm, W, y, U, ug, sfx)
+        partial_cholesky.launches += 1
+        partial_cholesky.cuda_launches += n
+    return dict(L=L, Linv=Linv, W=W, y=y, U=U, ug=ug, bad=torch.sum(bad).to(torch.int32))
 
 
 partial_cholesky.launches = 0
@@ -150,10 +177,23 @@ def partial_cholesky_blocks(Fblocks: torch.Tensor, gblocks: torch.Tensor, nf: in
             or Fblocks.numel() != B * mb * mb * d * d:
         raise ValueError(f"partial_cholesky_blocks: bad shapes Fblocks {tuple(Fblocks.shape)} "
                          f"gblocks {tuple(gblocks.shape)} nf={nf} ns={ns} d={d}")
-    L, Linv, W, y, U, ug, bad = _launch(
-        partial_cholesky_blocks, "gtsam_partial_cholesky_blocks", Fblocks.contiguous(),
-        gblocks.contiguous(), B, nf, ns, d, eps, (B, ns * ns, d, d), (B, ns, d), schur=False)
-    return dict(L=L, Linv=Linv, W=W, y=y, U_blocks=U, ug_blocks=ug, bad=bad)
+    itemsize = Fblocks.element_size()
+    _refuse_large("partial_cholesky_blocks", nf, ns, d, itemsize)
+    Fblocks, gblocks = Fblocks.contiguous(), gblocks.contiguous()
+    sfx = _check_cuda("partial_cholesky_blocks", Fblocks, gblocks)
+    plan = k4_plan(B, nf, ns, d, itemsize)
+    L, Linv, W, y, U, ug, bad = _outputs(Fblocks, B, nf, ns, d, (B, ns * ns, d, d), (B, ns, d))
+    if B:
+        fn = getattr(build.load("partial_cholesky_smem"), f"gtsam_partial_cholesky_blocks_{sfx}")
+        with torch.cuda.device(Fblocks.device):
+            _raise_on(fn(_ptr(Fblocks), _ptr(gblocks), _ptr(L), _ptr(Linv), _ptr(W), _ptr(y),
+                         _ptr(U), _ptr(ug), _ptr(bad), B, nf, ns, d, float(eps),
+                         plan.cliques_per_cta, plan.threads, plan.smem,
+                         torch.cuda.current_stream().cuda_stream), "partial_cholesky_blocks")
+        partial_cholesky_blocks.launches += 1
+        partial_cholesky_blocks.cuda_launches += 1
+    return dict(L=L, Linv=Linv, W=W, y=y, U_blocks=U, ug_blocks=ug,
+                bad=torch.sum(bad).to(torch.int32))
 
 
 partial_cholesky_blocks.launches = 0

@@ -5,6 +5,12 @@ Port of gtsam_petercdev_tpu/ops/cholesky_v2.py (`partial_cholesky`,
 `csrc/partial_cholesky.cu` with `csrc/schur_update.cu`, and
 `csrc/backsolve.cu` (the source notes say what bounds them).
 
+K2 is one launch per bucket in the mode `k2_plan` gives its shape: a warp
+per clique, several cliques a CTA, for fronts of fd <= 32 (unless a bucket
+of few cliques has a wide separator); else a thread-block cluster of c
+CTAs per clique (c = 1 a plain CTA) whose ranks split W's rows, rank 0
+running the right-looking block chain.
+
 K1 is three launches per bucket (`k1_plan` gives their grids): (a) the
 factor of F11, one CTA per clique, F11's lower triangle packed in shared
 memory where it fits 227 KB, else in a global scratch copy; (b) the
@@ -157,9 +163,76 @@ def backsolve_plain(L, Linv, W, y, xs, nf: int, d: int):
     return kernels.backsolve_bucket(L, Linv, rhs, nf, d)
 
 
+K2_CHUNK = 32  # backsolve.cu kChunk: W columns per ring stage (warp mode)
+K2_WARP_MAX_FD = 32  # backsolve.cu kWarpMaxFd: warp mode holds a clique's rows in one warp
+K2_MAX_FD = 512  # backsolve.cu kMaxFd: cluster mode's rank 0 has a thread per row
+K2_WARPS = 8  # at most this many cliques a CTA in warp mode
+K2_WARP_SD_PER_FD = 6  # warp mode unless sd > 6 fd in a bucket of < K2_WARP_MIN_B cliques
+K2_WARP_MIN_B = 32
+K2_SMS = 132  # the H100's SMs: warp mode spreads up to this many CTAs before packing warps
+K2_CLUSTER_MAX = 8  # the portable cluster size
+K2_CLUSTER_B = 16  # buckets of at most this many cliques may take clusters
+K2_CLUSTER_W = 8192  # W elements per CTA that ask for one more CTA in the cluster
+
+
+class K2Plan(NamedTuple):
+    """The one launch of K2 for one bucket."""
+    warp: bool  # warp mode (a warp per clique), else cluster mode
+    grid: int
+    threads: int
+    cluster: int  # CTAs per clique in cluster mode (1 in warp mode)
+    rows: int  # rows of r each cluster rank sums (fd in warp mode)
+    stages: int  # ring depth in W chunks (warp mode; 0 in cluster mode)
+    cliques_per_cta: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def k2_plan(B: int, nf: int, ns: int, d: int, itemsize: int) -> K2Plan:
+    """Mode, grid and shared memory of K2 for a bucket, by shape alone.
+    Fronts of fd <= 32 take warp mode, unless the bucket has fewer than
+    K2_WARP_MIN_B cliques whose separator is wider than K2_WARP_SD_PER_FD x
+    fd (one warp would sum the long rows of W alone: cluster mode's warps
+    share them). Warp mode puts ceil(B / K2_SMS) cliques in a CTA, at most
+    K2_WARPS, each warp a ring of [fd, K2_CHUNK + 1] W and K2_CHUNK xs
+    stages: as many as the chunks of W, at most 8, within half the card's
+    shared memory a CTA, at least 2. The rest take cluster mode: c CTAs per
+    clique, c > 1 only where the bucket has at most K2_CLUSTER_B cliques,
+    one per K2_CLUSTER_W elements of W, at most K2_CLUSTER_MAX; each rank
+    sums ceil(fd / c) rows of r."""
+    fd, sd = nf * d, ns * d
+    if not (0 < d <= MAX_D) or nf <= 0 or ns < 0 or fd > K2_MAX_FD:
+        raise ValueError(f"k2_plan: no plan for nf={nf} ns={ns} d={d} (fd <= {K2_MAX_FD})")
+    if fd <= K2_WARP_MAX_FD and (B >= K2_WARP_MIN_B or sd <= K2_WARP_SD_PER_FD * fd):
+        return k2_warp_plan(B, nf, ns, d, itemsize)
+    c = 1
+    if B <= K2_CLUSTER_B:
+        c = max(1, min(K2_CLUSTER_MAX, -(-fd * sd // K2_CLUSTER_W)))
+    return k2_cluster_plan(B, nf, ns, d, itemsize, c)
+
+
+def k2_warp_plan(B: int, nf: int, ns: int, d: int, itemsize: int) -> K2Plan:
+    """K2 in warp mode (fd <= K2_WARP_MAX_FD), as `k2_plan` sizes it."""
+    fd, sd = nf * d, ns * d
+    w = max(1, min(K2_WARPS, -(-B // K2_SMS)))
+    stage = (fd * (K2_CHUNK + 1) + K2_CHUNK) * itemsize
+    stages = max(2, min(8, -(-sd // K2_CHUNK), SMEM_LIMIT // 2 // (w * stage)))
+    return K2Plan(warp=True, grid=-(-B // w), threads=32 * w, cluster=1, rows=fd,
+                  stages=stages, cliques_per_cta=w, smem=w * stages * stage)
+
+
+def k2_cluster_plan(B: int, nf: int, ns: int, d: int, itemsize: int, c: int) -> K2Plan:
+    """K2 in cluster mode with c CTAs a clique, as `k2_plan` sizes it."""
+    fd = nf * d
+    rows = -(-fd // c)
+    return K2Plan(warp=False, grid=B * c, threads=512 if fd > 256 else 256, cluster=c,
+                  rows=rows, stages=0, cliques_per_cta=1, smem=(rows + 2 * fd) * itemsize)
+
+
 def backsolve_bucket(L, Linv, W, y, xs, nf: int, d: int):
     """Fused top-down back-substitution for one bucket: solves
-    L^T x = y - W @ xs. W / xs may be zero-width (root buckets)."""
+    L^T x = y - W @ xs. W / xs may be zero-width (root buckets). One CUDA
+    launch, in the mode `k2_plan` gives the shape."""
     if L.device.type == "cpu":
         return backsolve_plain(L, Linv, W, y, xs, nf, d)
     B, fd, _ = L.shape
@@ -169,13 +242,15 @@ def backsolve_bucket(L, Linv, W, y, xs, nf: int, d: int):
         raise ValueError("backsolve_bucket: bad shapes")
     L, Linv, W, y, xs = (t.contiguous() for t in (L, Linv, W, y, xs))
     sfx = _check_cuda("backsolve_bucket", L, Linv, W, y, xs)
+    plan = k2_plan(B, nf, sd // d, d, L.element_size())
     x = torch.empty((B, fd), dtype=L.dtype, device=L.device)
     if B:
         fn = getattr(build.load("backsolve"), f"gtsam_backsolve_{sfx}")
         with torch.cuda.device(L.device):
             err = fn(
                 _ptr(L), _ptr(Linv), _ptr(W), _ptr(y), _ptr(xs), _ptr(x),
-                B, nf, sd // d, d, torch.cuda.current_stream().cuda_stream,
+                B, nf, sd // d, d, int(plan.warp), plan.grid, plan.threads, plan.cluster,
+                plan.rows, plan.stages, plan.smem, torch.cuda.current_stream().cuda_stream,
             )
         _raise_on(err, "backsolve_bucket")
         backsolve_bucket.launches += 1

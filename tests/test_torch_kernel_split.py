@@ -1,5 +1,8 @@
-"""The launch plans of the multi-CTA K1 and K3 (the bucket partial
-Cholesky kernels), at every K1 / K3 bucket shape of the two bench plans.
+"""The launch plans of the bucket kernels at every bucket shape of the two
+bench plans: the multi-CTA K1 and K3 (the partial Cholesky kernels for
+dense fronts), K2 (the fused backsolve: a warp per clique, or a cluster of
+CTAs per clique) and K4 (the block-pool partial Cholesky, several leaf
+cliques a CTA).
 
 K1 (`ops/cholesky_v2.partial_cholesky`) is three CUDA launches a bucket:
 the factor of F11 (packed in shared memory where it fits, else in a global
@@ -9,7 +12,8 @@ the Schur-complement stage over 64 x 64 tiles of U (`ops/schur_update`).
 K3 (`ops/cholesky.partial_cholesky`) is its shared-memory factor, then the
 same Schur stage. The kernels run only on a card; here the host side is
 checked: the slabs and tiles cover every W / y column and every U element
-exactly once, the shared memory of each launch fits the card, the factor
+exactly once, K2's warps and cluster ranks every row of r and every clique
+once, K4's groups every clique once, the shared memory of each launch fits the card, the factor
 and solve branches are chosen by shape and take a front of any size, and the wrappers call the entry points in order
 with the plan's grids, counting one wrapper call and its CUDA launches (a
 meta tensor stands in for a device tensor, a recorder for the library).
@@ -289,6 +293,149 @@ def test_schur_stage_is_registered():
         src = f.read()
     assert f"constexpr int kSlab = {t_ops_v2.SLAB};" in src
     assert f"constexpr int kSolveThreads = {t_ops_v2.SOLVE_THREADS};" in src
-    for name in ("partial_cholesky.cu", "partial_cholesky_smem.cu", "schur_update.cu"):
+    for name in ("partial_cholesky.cu", "partial_cholesky_smem.cu", "schur_update.cu",
+                 "backsolve.cu"):
         with open(os.path.join(build.CSRC, name)) as f:
             assert not re.search(r"atomic\w*\(|\batom\.|\bred\.", f.read()), name
+
+
+# --- K2: the fused backsolve, warp mode and cluster mode -------------------------
+
+
+def _all_shapes():
+    """Distinct (B, nf, ns, d) of every bucket of the two bench plans."""
+    return sorted({(B, nf, ns, PLANS[p]["d"]) for p in ("sphere", "ba")
+                   for B, nf, ns, _, _ in PLANS[p]["buckets"]})
+
+
+K2_SHAPES = [s + (sfx,) for s in _all_shapes() + [(1, 32, 8, 16)] for sfx in ("f64", "f32")]
+
+
+def test_k2_mode_threshold_pins_the_bench_buckets():
+    """Warp mode takes the fronts of fd <= 32 (118 of the 126 BA buckets,
+    11 of the 47 sphere buckets) except buckets of fewer than 32 cliques
+    whose separator is wider than 6 fd: 57 BA buckets (the 50,000-clique
+    leaf among them) and 7 sphere buckets."""
+    assert t_ops_v2.K2_WARP_MAX_FD == 32
+    assert (t_ops_v2.K2_WARP_MIN_B, t_ops_v2.K2_WARP_SD_PER_FD) == (32, 6)
+    for plan, n_small, n_warp in (("sphere", 11, 7), ("ba", 118, 57)):
+        d = PLANS[plan]["d"]
+        buckets = PLANS[plan]["buckets"]
+        assert sum(nf * d <= 32 for _, nf, _, _, _ in buckets) == n_small
+        modes = [t_ops_v2.k2_plan(B, nf, ns, d, 8).warp for B, nf, ns, _, _ in buckets]
+        assert sum(modes) == n_warp
+    leaf = t_ops_v2.k2_plan(50_000, 1, 4, 9, 8)
+    assert leaf.warp and leaf.cliques_per_cta == t_ops_v2.K2_WARPS
+    assert t_ops_v2.k2_plan(71, 1, 6, 6, 8).cliques_per_cta == 1  # spread over 71 SMs
+    assert not t_ops_v2.k2_plan(1, 1, 24, 9, 8).warp  # fd = 9, sd = 216: cluster mode
+    root = t_ops_v2.k2_plan(1, 32, 96, 6, 8)
+    assert not root.warp and root.cluster == t_ops_v2.K2_CLUSTER_MAX
+
+
+@pytest.mark.parametrize("B,nf,ns,d,sfx", K2_SHAPES)
+def test_k2_plan_covers_every_row_and_clique_once(B, nf, ns, d, sfx):
+    fd, sd = nf * d, ns * d
+    plan = t_ops_v2.k2_plan(B, nf, ns, d, ITEMSIZE[sfx])
+    assert plan.smem <= t_ops_v2.SMEM_LIMIT and plan.threads % 32 == 0
+    assert 1 <= plan.cluster <= 8 and plan.grid % plan.cluster == 0
+    seen = np.zeros((B, fd), dtype=np.int64)  # (clique, row of r) -> times summed
+    if plan.warp:
+        assert fd <= t_ops_v2.K2_WARP_MAX_FD and plan.cluster == 1 and plan.threads <= 256
+        assert B >= t_ops_v2.K2_WARP_MIN_B or sd <= t_ops_v2.K2_WARP_SD_PER_FD * fd
+        w = plan.threads // 32
+        assert w == plan.cliques_per_cta
+        stage = (fd * (t_ops_v2.K2_CHUNK + 1) + t_ops_v2.K2_CHUNK) * ITEMSIZE[sfx]
+        assert 2 <= plan.stages <= 8 and plan.smem == w * plan.stages * stage
+        assert plan.stages == 2 or plan.stages <= -(-sd // t_ops_v2.K2_CHUNK)
+        for blk in range(plan.grid):
+            for warp in range(w):
+                b = blk * w + warp
+                if b < B:
+                    seen[b, :] += 1  # lane f < fd owns row f
+    else:
+        assert plan.grid == B * plan.cluster
+        assert fd > t_ops_v2.K2_WARP_MAX_FD or (B < t_ops_v2.K2_WARP_MIN_B
+                                                 and sd > t_ops_v2.K2_WARP_SD_PER_FD * fd)
+        assert fd <= plan.threads <= 512 and plan.stages == 0  # rank 0: a thread a row
+        assert plan.smem == (plan.rows + 2 * fd) * ITEMSIZE[sfx]
+        if plan.cluster > 1:
+            assert B <= t_ops_v2.K2_CLUSTER_B
+        for blk in range(plan.grid):
+            b, rank = divmod(blk, plan.cluster)
+            seen[b, rank * plan.rows : min(fd, (rank + 1) * plan.rows)] += 1
+    assert (seen == 1).all()
+
+
+def test_k2_plan_refuses_fronts_past_the_chain():
+    with pytest.raises(ValueError, match="fd <= 512"):
+        t_ops_v2.k2_plan(1, 33, 0, 16, 8)
+
+
+@pytest.mark.parametrize("B,nf,ns,d,sfx", [(50_000, 1, 4, 9, "f64"), (1, 32, 96, 6, "f64"),
+                                           (3, 16, 24, 6, "f32"), (1, 24, 0, 9, "f64"),
+                                           (2, 3, 12, 9, "f32")])
+def test_k2_wrapper_launches_once_with_the_plan(recorded, B, nf, ns, d, sfx):
+    dtype = torch.float64 if sfx == "f64" else torch.float32
+    fd, sd = nf * d, ns * d
+    x = t_ops_v2.backsolve_bucket(_meta(B, fd, fd, dtype=dtype), _meta(B, nf, d, d, dtype=dtype),
+                                  _meta(B, fd, sd, dtype=dtype), _meta(B, fd, dtype=dtype),
+                                  _meta(B, sd, dtype=dtype), nf, d)
+    plan = t_ops_v2.k2_plan(B, nf, ns, d, ITEMSIZE[sfx])
+    assert [c[0] for c in recorded] == [f"gtsam_backsolve_{sfx}"]
+    assert recorded[0][1][6:17] == (B, nf, ns, d, int(plan.warp), plan.grid, plan.threads,
+                                    plan.cluster, plan.rows, plan.stages, plan.smem)
+    assert t_ops.launch_counts()["backsolve_bucket"] == 1
+    assert t_ops.cuda_launch_counts()["backsolve_bucket"] == 1
+    assert x.shape == (B, fd)
+
+
+# --- K4: several leaf cliques a CTA ------------------------------------------------
+
+
+K4_SHAPES = sorted({(B, nf, ns, d) for B, nf, ns, d, _ in _shapes("blocks")}
+                   | {(b, 1, 4, 9) for b in (50_000, 1, 17)}
+                   | {(9, 1, 4, 6), (5, 6, 6, 9), (3, 2, 3, 9)})
+
+
+@pytest.mark.parametrize("sfx", ["f64", "f32"])
+@pytest.mark.parametrize("B,nf,ns,d", K4_SHAPES)
+def test_k4_plan_covers_every_clique_once(B, nf, ns, d, sfx):
+    isz = ITEMSIZE[sfx]
+    plan = t_ops.k4_plan(B, nf, ns, d, isz)
+    G = plan.cliques_per_cta
+    assert t_ops.fits_smem(nf, ns, d, isz) and plan.smem <= t_ops.SMEM_LIMIT
+    per = t_ops.smem_bytes(nf, ns, d, isz) - 16
+    assert plan.smem == G * per + 16 * -(-G // 4)
+    if G > 1:  # a warp a clique, four such CTAs fit an SM
+        assert nf * d <= t_ops.K4_WARP_MAX_FD and plan.threads == 32 * G and 4 * plan.smem <= t_ops.SMEM_LIMIT + 64
+    else:
+        assert plan.threads in (64, 256, 1024)
+    seen = np.zeros(B, dtype=np.int64)
+    for blk in range(plan.grid):
+        b0 = blk * G
+        seen[b0 : b0 + min(G, B - b0)] += 1
+    assert (seen == 1).all()
+    assert plan.grid == -(-B // G)
+
+
+def test_k4_plan_groups_the_leaves():
+    """The BA leaf and the sphere's large leaf take eight cliques a CTA; a
+    leaf clique too large to share a CTA takes one."""
+    for isz in (8, 4):
+        assert t_ops.k4_plan(50_000, 1, 4, 9, isz).cliques_per_cta == 8
+        assert t_ops.k4_plan(395, 1, 4, 6, isz).cliques_per_cta == 8
+        assert t_ops.k4_plan(17, 1, 4, 9, isz).grid == 3  # a ragged last group of one
+        assert t_ops.k4_plan(5, 6, 6, 9, isz).cliques_per_cta == 1
+
+
+@pytest.mark.parametrize("B,nf,ns,d", [(50_000, 1, 4, 9), (17, 1, 3, 6), (2, 6, 6, 9)])
+def test_k4_wrapper_launches_once_with_the_plan(recorded, B, nf, ns, d):
+    mb = nf + ns
+    out = t_ops.partial_cholesky_blocks(_meta(B * mb * mb, d, d), _meta(B, mb, d), nf, ns, d)
+    plan = t_ops.k4_plan(B, nf, ns, d, 8)
+    assert [c[0] for c in recorded] == ["gtsam_partial_cholesky_blocks_f64"]
+    assert recorded[0][1][9:13] == (B, nf, ns, d)
+    assert recorded[0][1][14:17] == (plan.cliques_per_cta, plan.threads, plan.smem)
+    assert t_ops.launch_counts()["partial_cholesky_blocks"] == 1
+    assert t_ops.cuda_launch_counts()["partial_cholesky_blocks"] == 1
+    assert out["U_blocks"].shape == (B, ns * ns, d, d) and out["ug_blocks"].shape == (B, ns, d)

@@ -9,7 +9,10 @@ against a small header that emulates what the kernels use: blocks run one
 after another, a block's threads run as std::threads, __syncthreads() is a
 std::barrier, __shared__ arrays are statics and dynamic shared memory is a
 per-CTA buffer of the size the launch asks for, grids may be 2-D, and a
-source may launch several kernels. Each warp of 32 threads has its own
+source may launch several kernels. A cluster launch (cudaLaunchKernelEx
+with a cluster dimension) runs the cluster's CTAs together, so
+cluster.sync() is a barrier over all their threads and map_shared_rank
+returns the peer CTA's buffer. Each warp of 32 threads has its own
 barrier and exchange slots: __syncwarp() and __shfl_sync() go through them,
 and so does the FP64 tensor-core product (`dmma_8x8x4` in
 csrc/factor_common.cuh), which the emulator computes from the 32 lanes'
@@ -24,7 +27,10 @@ shapes with d = 3, 6, 9 and 16, in float64 and float32 (the sphere root, a
 front whose packed F11 exceeds shared memory and the largest front the
 planner forms, whose solve stage exceeds it too, among them); K1 runs each
 shape twice, as planned and with both of its global-memory branches forced
-(they are the same code as the card takes past shared memory), plus indefinite
+(they are the same code as the card takes past shared memory), K2 in its
+planned mode and in each mode forced (warp mode where fd <= 32, clusters of
+one and of three CTAs), K4 at its planned G and at G = 1 and G = 4 (ragged
+last groups), plus indefinite
 buckets with the bad pivot in the first and in a later diagonal block
 (equal bad-pivot counts). This checks indexing, phases, barriers and
 fragment layouts; it says nothing about speed or about what nvcc accepts.
@@ -53,6 +59,7 @@ FAKE_CUDA = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -79,16 +86,33 @@ template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
 
 // a CTA: its threads are std::threads, __syncthreads() a barrier over all of
 // them, and each warp of 32 has its own barrier and exchange slots, through
-// which __syncwarp, __shfl_sync and the DMMA product move values
+// which __syncwarp, __shfl_sync and the DMMA product move values. The CTAs of
+// a cluster run together, each with its own barrier, warps and dynamic
+// shared memory, so cluster.sync() is a barrier over all their threads and
+// map_shared_rank reaches a peer CTA's buffer.
 struct EmuWarp {
   std::barrier<> bar{32};
   alignas(8) unsigned char x[32][8];
   double a[32], b[32];
 };
-inline std::barrier<>* g_bar = nullptr;
+struct EmuCta {
+  std::barrier<> bar;
+  std::vector<EmuWarp> warps;
+  std::vector<std::max_align_t> dyn;
+  EmuCta(int nt, size_t smem) : bar(nt), warps(nt / 32), dyn(smem / sizeof(std::max_align_t) + 1) {}
+};
+struct EmuCluster {
+  std::barrier<> bar;
+  std::vector<unsigned char*> smem;
+  explicit EmuCluster(int n) : bar(n) {}
+};
+inline thread_local std::barrier<>* t_bar = nullptr;
 inline thread_local EmuWarp* t_warp = nullptr;
 inline thread_local int t_lane = 0;
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline thread_local EmuCluster* t_cluster = nullptr;
+inline thread_local unsigned t_rank = 0;
+inline thread_local unsigned char* g_dyn_smem = nullptr;
+inline void __syncthreads() { t_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { t_warp->bar.arrive_and_wait(); }
 template <class T>
 T __shfl_sync(unsigned, T v, int src) {
@@ -99,6 +123,10 @@ T __shfl_sync(unsigned, T v, int src) {
   __syncwarp();
   return r;
 }
+template <class T>
+T __shfl_xor_sync(unsigned m, T v, int mask) { return __shfl_sync(m, v, t_lane ^ mask); }
+using std::max;
+using std::min;
 // mma.sync.aligned.m8n8k4.row.col.f64 with the PTX ISA's fragment layout
 // (g = lane / 4, t = lane % 4): lane holds A[g][t] and B[t][g], and its
 // accumulators are C[g][2t] and C[g][2t+1]. So A[r][k] is lane 4r+k's a,
@@ -121,31 +149,81 @@ inline void cp_async_commit() {}
 template <int N>
 void cp_async_wait() {}
 
-inline unsigned char* g_dyn_smem = nullptr;
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { t_cluster->bar.arrive_and_wait(); }
+  unsigned block_rank() const { return t_rank; }
+  unsigned num_blocks() const { return static_cast<unsigned>(t_cluster->smem.size()); }
+  template <class T>
+  T* map_shared_rank(T* p, unsigned rank) const {
+    return reinterpret_cast<T*>(t_cluster->smem[rank] +
+                                (reinterpret_cast<unsigned char*>(p) - g_dyn_smem));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+
+// grid, blockDim.x threads, dynamic shared memory, cluster of c CTAs along x
 template <class F>
-void emu_launch(dim3 grid, int nt, size_t smem, F body) {
+void emu_launch_cluster(dim3 grid, int nt, size_t smem, unsigned c, F body) {
   if (nt % 32) throw "block size is not a whole number of warps";
+  if (grid.x % c) throw "grid is not a whole number of clusters";
   blockDim = dim3(nt);
   gridDim = grid;
   for (unsigned by = 0; by < grid.y; ++by) {
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bar(nt);
-      g_bar = &bar;
-      std::vector<EmuWarp> warps(nt / 32);
-      std::vector<std::max_align_t> dyn(smem / sizeof(std::max_align_t) + 1);
-      g_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
+    for (unsigned bx0 = 0; bx0 < grid.x; bx0 += c) {
+      EmuCluster cl(static_cast<int>(c) * nt);
+      std::vector<std::unique_ptr<EmuCta>> ctas;
+      for (unsigned r = 0; r < c; ++r) {
+        ctas.push_back(std::make_unique<EmuCta>(nt, smem));
+        cl.smem.push_back(reinterpret_cast<unsigned char*>(ctas.back()->dyn.data()));
+      }
       std::vector<std::thread> ts;
-      for (int t = 0; t < nt; ++t)
-        ts.emplace_back([&, bx, by, t]() {
-          blockIdx = dim3(bx, by);
-          threadIdx = dim3(t);
-          t_warp = &warps[t / 32];
-          t_lane = t % 32;
-          body();
-        });
+      for (unsigned r = 0; r < c; ++r)
+        for (int t = 0; t < nt; ++t)
+          ts.emplace_back([&, bx0, by, r, t]() {
+            blockIdx = dim3(bx0 + r, by);
+            threadIdx = dim3(t);
+            t_bar = &ctas[r]->bar;
+            t_warp = &ctas[r]->warps[t / 32];
+            t_lane = t % 32;
+            t_cluster = &cl;
+            t_rank = r;
+            g_dyn_smem = cl.smem[r];
+            body();
+          });
       for (auto& th : ts) th.join();
     }
   }
+}
+template <class F>
+void emu_launch(dim3 grid, int nt, size_t smem, F body) { emu_launch_cluster(grid, nt, smem, 1, body); }
+
+struct cudaLaunchAttribute {
+  int id;
+  struct {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+constexpr int cudaLaunchAttributeClusterDimension = 4;
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... E, class... A>
+int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(E...), A&&... args) {
+  unsigned c = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) c = cfg->attrs[i].val.clusterDim.x;
+  if (c < 1 || c > 8 || cfg->gridDim.x % c) return cudaErrorInvalidValue;
+  emu_launch_cluster(cfg->gridDim, static_cast<int>(cfg->blockDim.x), cfg->dynamicSmemBytes, c,
+                     [&]() { kernel(args...); });
+  return 0;
 }
 """
 
@@ -154,6 +232,9 @@ void emu_launch(dim3 grid, int nt, size_t smem, F body) {
 SHAPES = [(3, 2, 1, 6), (4, 1, 0, 6), (2, 4, 3, 6), (5, 3, 2, 3), (2, 12, 16, 6),
           (1, 8, 24, 6), (2, 4, 40, 6), (1, 32, 0, 6), (2, 3, 9, 16),
           (6, 1, 4, 9), (3, 1, 0, 9), (2, 2, 3, 9), (1, 6, 6, 9),
+          # leaf buckets whose last K4 group is ragged (G = 8), K2's warp mode
+          # over four and nine W chunks
+          (11, 1, 4, 9), (9, 1, 4, 6), (3, 2, 12, 9), (2, 1, 48, 6),
           # K1: the sphere root (19 solve slabs, 45 U tiles), a front whose
           # packed F11 exceeds shared memory in float64, and nf = 32 at d = 16,
           # whose solve stage exceeds it too (both global branches)
@@ -169,6 +250,7 @@ def compile_emulated(workdir):
     for name, src in build.SOURCES.items():
         with open(os.path.join(build.CSRC, src)) as f:
             code = f.read().replace("#include <cuda_runtime.h>", '#include "fake_cuda.h"')
+        code = code.replace("#include <cooperative_groups.h>", "")
         # dynamic shared memory: the per-CTA buffer emu_launch allocates
         code = re.sub(r"extern\s+__shared__[^;]*?(\w+)\[\];",
                       r"unsigned char* \1 = g_dyn_smem;", code)
@@ -240,15 +322,34 @@ def emulated_partial_cholesky(libs, Fm, gm, nf, d, force_global=False):
     return out
 
 
-def emulated_smem(libs, entry, F, g, nf, ns, d, u_shape, ug_shape):
+def k4_variants(B, nf, ns, d, itemsize):
+    """K4's plan for the shape, then G = 1 and G = 4 forced (G = 4 leaves a
+    ragged last group wherever B is not a multiple of it)."""
+    plan = cholesky.k4_plan(B, nf, ns, d, itemsize)
+    per = cholesky.smem_bytes(nf, ns, d, itemsize) - 16
+    out = [("planned", plan)]
+    for G in (1, 4):
+        if G != plan.cliques_per_cta and (G == 1 or nf * d <= cholesky.K4_WARP_MAX_FD):
+            threads = cholesky.k4_plan(1, nf, ns, d, itemsize).threads if G == 1 else 32 * G
+            out.append((f"G={G}", plan._replace(cliques_per_cta=G, grid=-(-B // G),
+                                                threads=threads, smem=G * per + 16 * -(-G // 4))))
+    return out
+
+
+def emulated_smem(libs, entry, F, g, nf, ns, d, u_shape, ug_shape, plan=None):
     """K3 (entry "smem": F [B, m, m], then the Schur stage) or K4 (entry
-    "blocks": F as blocks, U in the same launch)."""
+    "blocks": F as blocks, U in the same launch, launched by `plan`)."""
     B, dt = g.shape[0], F.dtype
     out = _outputs(B, nf, ns, d, dt, u_shape, ug_shape)
     bad = np.empty(B, np.int32)
     fn = getattr(libs["partial_cholesky_smem"], f"gtsam_partial_cholesky_{entry}_" + _sfx(dt))
-    err = fn(_ptr(F), _ptr(g), *(_ptr(out[k]) for k in ("L", "Linv", "W", "y", "U", "ug")),
-             _ptr(bad), B, nf, ns, d, 1e-10, None)
+    if entry == "smem":
+        err = fn(_ptr(F), _ptr(g), *(_ptr(out[k]) for k in ("L", "Linv", "W", "y")),
+                 _ptr(bad), B, nf, ns, d, 1e-10, None)
+    else:
+        err = fn(_ptr(F), _ptr(g), *(_ptr(out[k]) for k in ("L", "Linv", "W", "y", "U", "ug")),
+                 _ptr(bad), B, nf, ns, d, 1e-10, plan.cliques_per_cta, plan.threads, plan.smem,
+                 None)
     assert err == 0
     if entry == "smem":
         emulated_schur(libs["schur_update"], F, g, out["W"], out["y"], out["U"], out["ug"])
@@ -271,24 +372,44 @@ def check_smem_kernels(libs, Fm, gm, nf, ns, d, tol):
     Fb = np.ascontiguousarray(cholesky.blocks_from_dense(tF, mb, d).numpy())
     gb = gm.reshape(B, mb, d)
     ref4 = cholesky.partial_cholesky_blocks_plain(torch.tensor(Fb), torch.tensor(gb), nf, ns, d)
-    got4 = emulated_smem(libs, "blocks", Fb.reshape(-1, d, d), gb, nf, ns, d,
-                         (B, ns * ns, d, d), (B, ns, d))
     ref4["U"], ref4["ug"] = ref4["U_blocks"], ref4["ug_blocks"]
-    for got, ref in ((got3, ref3), (got4, ref4)):
-        assert got["bad"] == int(ref["bad"]), (got["bad"], int(ref["bad"]))
-    err = max(_err(got3, ref3), _err(got4, ref4)) if tol < np.inf else np.nan
+    assert got3["bad"] == int(ref3["bad"]), (got3["bad"], int(ref3["bad"]))
+    err = _err(got3, ref3) if tol < np.inf else np.nan
+    for G, plan in k4_variants(B, nf, ns, d, Fm.itemsize):
+        got4 = emulated_smem(libs, "blocks", Fb.reshape(-1, d, d), gb, nf, ns, d,
+                             (B, ns * ns, d, d), (B, ns, d), plan)
+        assert got4["bad"] == int(ref4["bad"]), (G, got4["bad"], int(ref4["bad"]))
+        if tol < np.inf:
+            e4 = _err(got4, ref4)
+            assert e4 < tol, (B, nf, ns, d, G, e4)
+            err = max(err, e4)
     assert not err >= tol, (B, nf, ns, d, err)
     assert np.array_equal(got3["U"], got3["U"].transpose(0, 2, 1), equal_nan=True), \
         "K3's U is not symmetric"
     return err, got3["bad"]
 
 
-def emulated_backsolve(lib, L, Linv, W, y, xs, nf, d):
+def k2_variants(B, nf, ns, d, itemsize):
+    """K2's plan for the shape, then each mode forced: warp mode where the
+    front allows it (fd <= 32), cluster mode with one CTA a clique and with
+    a cluster of three (ragged row slices)."""
+    plan = cholesky_v2.k2_plan(B, nf, ns, d, itemsize)
+    out = [("planned", plan)]
+    if nf * d <= cholesky_v2.K2_WARP_MAX_FD and not plan.warp:
+        out.append(("warp", cholesky_v2.k2_warp_plan(B, nf, ns, d, itemsize)))
+    for c in (1, 3):
+        if plan.warp or plan.cluster != c:
+            out.append((f"cluster {c}", cholesky_v2.k2_cluster_plan(B, nf, ns, d, itemsize, c)))
+    return out
+
+
+def emulated_backsolve(lib, L, Linv, W, y, xs, nf, d, plan):
     B, fd, _ = L.shape
     x = np.empty((B, fd), L.dtype)
     fn = getattr(lib, "gtsam_backsolve_" + _sfx(L.dtype))
     assert fn(_ptr(L), _ptr(Linv), _ptr(W), _ptr(y), _ptr(xs), _ptr(x), B, nf,
-              W.shape[2] // d, d, None) == 0
+              W.shape[2] // d, d, int(plan.warp), plan.grid, plan.threads, plan.cluster,
+              plan.rows, plan.stages, plan.smem, None) == 0
     return x
 
 
@@ -323,15 +444,21 @@ def main():
                 args = [np.ascontiguousarray(ref[k].numpy()) for k in ("L", "Linv", "W", "y")]
                 xs = rng.standard_normal((B, ns * d)).astype(dt)
                 x_ref = cholesky_v2.backsolve_plain(*map(torch.tensor, args), torch.tensor(xs), nf, d)
-                x = emulated_backsolve(libs["backsolve"], *args, xs, nf, d)
-                e2 = float(np.abs(x - x_ref.numpy()).max())
-                assert e2 < TOL[dt], (B, nf, ns, d, e2)
+                e2, modes = 0.0, []
+                for mode, plan in k2_variants(B, nf, ns, d, np.dtype(dt).itemsize):
+                    x = emulated_backsolve(libs["backsolve"], *args, xs, nf, d, plan)
+                    e = float(np.abs(x - x_ref.numpy()).max())
+                    assert e < TOL[dt], (B, nf, ns, d, mode, e)
+                    e2 = max(e2, e)
+                    modes.append(mode if mode != "planned" else
+                                 ("warp" if plan.warp else f"cluster {plan.cluster}") + " (planned)")
                 e34 = "does not fit shared memory"
                 if cholesky.fits_smem(nf, ns, d, np.dtype(dt).itemsize):
                     e34 = "max err %.2e" % check_smem_kernels(libs, Fm, gm, nf, ns, d, TOL[dt])[0]
                 print(f"{np.dtype(dt).name} B={B} nf={nf} ns={ns} d={d}: K1 ({got['branch']}) "
-                      f"max err {e1:.2e}, both global branches {e1g:.2e}, K2 max err {e2:.2e}, "
-                      f"K3/K4 {e34}", flush=True)
+                      f"max err {e1:.2e}, both global branches {e1g:.2e}, K2 ({', '.join(modes)}) max err "
+                      f"{e2:.2e}, "
+                      f"K3/K4 (K4 at G = planned, 1, 4) {e34}", flush=True)
             # indefinite buckets: the bad pivot in the first diagonal block,
             # then in a later one; plain, K1, K3 and K4 count the same
             for B, nf, ns, d, row in ((2, 2, 1, 3, 0), (2, 3, 1, 3, 4), (1, 3, 2, 9, 10)):
