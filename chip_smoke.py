@@ -2,9 +2,12 @@
 """Drive the PyTorch/CUDA port (gtsam_petercdev_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 everything below
-    python3 chip_smoke.py --kernels-only  phases 1-3: checks at a dozen shapes,
-                                          times over the bench plans' buckets; no
-                                          result line (a check after a kernel edit)
+    python3 chip_smoke.py --kernels-only  phases 1-3: checks at a dozen shapes and
+                                          the iSAM2 path's, times over the bench
+                                          plans' buckets; no result line (a check
+                                          after a kernel edit)
+    python3 chip_smoke.py --isam2-only    phases 1-2, the iSAM2 path's d = 3 shapes
+                                          of phase 3, then phase 6; no result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -25,7 +28,11 @@ a result line:
              buckets the routing gives each kernel, and per bucket (events,
              device time, bound) for all four; composites of library calls
              beside K1 (sphere root) and K2 (sphere root, BA leaf),
-             informational
+             informational. The iSAM2 path's d = 3 buckets (tests/data/
+             isam2_bucket_shapes.json: the level steps' shapes for K4 / K1,
+             the wildfire rounds' for K2, a d = 3 indefinite bucket) are
+             checked the same way, and each kernel is timed over a sweep of
+             the ones it takes
   4. sphere  the synthetic 2,500-pose / 4,949-factor Pose3 sphere through the
              port's entry points: gauss_newton (f64, solver="multifrontal")
              and levenberg_marquardt, launch counters reset just before and
@@ -38,7 +45,22 @@ a result line:
              counters reset just before and read just after; the first damped
              multifrontal step against the Schur solver's; a small rig against
              the CPU path; LM iterations per second by bench.py's protocol
-  6. result  a `kernels` JSON line, the card line, then the last line
+  6. iSAM2   float64, through run_city10000 / ISAM2.update on a synthetic
+             City10000-like stream (utils/synthetic.city_stream): a) its
+             first 150 lines on the card and on the CPU path, final
+             estimates within rel 1e-9 and identical Bayes-tree counters
+             update by update (wildfire rounds reported: see run_isam2);
+             b) the reference contract (no relinearization, wildfire 0, 60
+             poses: the delta after every 6th update = the dense solve,
+             atol 1e-9); c) CITY_LINES lines at City10000's parameters,
+             counters reset just before and read just after: per-update ms,
+             launches per update, a profiled window of 50 updates (CUDA
+             launches, device busy share), device->host reads per update,
+             re-eliminated cliques, peak device memory, ATE against the
+             stream's ground truth, the final error beside a batch GN of the
+             final graph from the iSAM2 estimate; gates: finite errors, no
+             bad pivots, K2 and K4 launched
+  7. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -78,9 +100,24 @@ BA_LEAF = (50_000, 1, 4, 9)
 # wrote them (the --kernels-only sweeps)
 BENCH_SHAPES = "tests/data/bench_bucket_shapes.json"
 # indefinite buckets (B, nf, ns, d, diagonal entry set to -5): the bad pivot
-# in the first diagonal block, and in a later one
-INDEFINITE = [(3, 2, 1, 6, 0), (2, 3, 2, 9, 10)]
+# in the first diagonal block, and in a later one (at d = 6, 9, and 3 as the
+# iSAM2 path has it)
+INDEFINITE = [(3, 2, 1, 6, 0), (2, 3, 2, 9, 10), (4, 3, 2, 3, 4)]
 FACTOR_KEYS = ("L", "Linv", "W", "y", "U", "ug")
+# the iSAM2 path (phase 6): a city_stream of CITY_POSES poses (seed SEED),
+# cut at CITY_LINES lines for the full run, at City10000's parameters
+# (wildfire 0.0, relinearize threshold 0.01, skip 1); the card-vs-CPU gate
+# on its first CITY_GATE_LINES lines; the reference contract on
+# CONTRACT_POSES poses; a profiled window of PROFILE_UPDATES updates ending
+# 10 updates before the last
+CITY_POSES = 3687
+CITY_LINES = 1500
+CITY_GATE_LINES = 150
+CONTRACT_POSES = 60
+PROFILE_UPDATES = 50
+# the d = 3 bucket shapes of that run's level steps and wildfire rounds, as
+# tools/bench_bucket_shapes.py wrote them
+ISAM2_SHAPES = "tests/data/isam2_bucket_shapes.json"
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
@@ -208,11 +245,12 @@ def max_err(got, ref, keys, tol, what):
     return worst
 
 
-def check_kernels(torch, mods, cases, timed):
+def check_kernels(torch, mods, cases, timed, extras=True):
     """Hold the four kernels against their plain versions at every case
     (B, nf, ns, d) and time them. timed: dtype name -> kernel name -> the
     cases of one sweep (the buckets the routing gives that kernel in the two
-    bench plans, each once, in plan order)."""
+    bench plans, each once, in plan order). extras: the indefinite buckets
+    and the library composites too."""
     v2, v1, kernels = mods
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     res = {k: {} for k in KERNELS}
@@ -251,7 +289,7 @@ def check_kernels(torch, mods, cases, timed):
         # indefinite buckets: clamped pivots counted identically by the plain
         # version and all three factor kernels, the bad pivot in the first
         # diagonal block and in a later one
-        for B, nf, ns, d, row in INDEFINITE:
+        for B, nf, ns, d, row in INDEFINITE if extras else ():
             F, g = spd_bucket(torch, gen, B, (nf + ns) * d, dtype)
             F[0, row, row] = -5.0
             Fb = v1.blocks_from_dense(F, nf + ns, d).contiguous().view(-1, d, d)
@@ -266,7 +304,7 @@ def check_kernels(torch, mods, cases, timed):
                 f"{row // d}): bad pivots (plain, K1, K3, K4) = {bad}")
 
         # times: plain, kernel, kernel, plain within this one call
-        for kname in KERNELS:
+        for kname in timed[name]:
             sweep_cases = timed[name][kname]
             inputs = []
             for B, nf, ns, d in sweep_cases:
@@ -332,7 +370,8 @@ def check_kernels(torch, mods, cases, timed):
                 r["k1_same_buckets_ms"] = event_ms(torch, sweep_1, 10)
             res[kname][name] = r
             del inputs
-        log(f"kernels {name} ({len(cases)} shapes, {n_smem} fit shared memory): " + "; ".join(
+        log(f"kernels {name} ({len(cases)} shapes checked, {n_smem} fit shared memory): "
+            + "; ".join(
             f"{k} err {v[name]['max_abs_err']:.2e} ms {v[name]['ms']:.3f} "
             f"(device {v[name]['device_ms']}) plain {v[name]['plain_ms']:.3f} "
             f"bound {v[name]['bound_ms']:.4f} ({v[name]['bound_by']}) over "
@@ -340,7 +379,9 @@ def check_kernels(torch, mods, cases, timed):
             f"launches a bucket"
             + (f" K1 on the same buckets {v[name]['k1_same_buckets_ms']:.3f}"
                if "k1_same_buckets_ms" in v[name] else "")
-            for k, v in res.items()))
+            for k, v in res.items() if name in v))
+        if not extras:
+            continue
         # the sphere root: K1 beside a composite of library calls computing
         # the same outputs (informational; the port never calls it)
         B, nf, ns, d = SPHERE_ROOT
@@ -479,6 +520,271 @@ def log_routing(elimination, label, maps):
         for (B, nf, ns, a), (_, _, _, b) in zip(r64, r32)))
 
 
+# --- phase 6: iSAM2 ------------------------------------------------------------------
+
+
+def isam2_shapes(here):
+    """The iSAM2 path's d = 3 buckets from ISAM2_SHAPES: (level [(B, nf,
+    ns, route f64, route f32)], wildfire [(B, nf, ns)]), the most frequent
+    first."""
+    with open(os.path.join(here, ISAM2_SHAPES)) as f:
+        rec = json.load(f)
+    return ([tuple(b[:5]) for b in rec["level"]], [tuple(b[:3]) for b in rec["wildfire"]])
+
+
+def write_stream(here, lines, n):
+    """The first n lines of the stream as a file in the build directory."""
+    path = os.path.join(here, "gtsam_petercdev_torch", "_build", f"city_stream_{n}.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(lines[:n]) + "\n")
+    return path
+
+
+class LayerTimer:
+    """Host wall time of an iSAM2 update by layer, each layer's call
+    wrapped in torch.cuda.synchronize() on both sides so its device work is
+    its own: linearize (new and relinearized factor rows), the
+    relinearization scan, the host plan (cache misses), the pool scatters,
+    the level steps (K4 / K1 and the extend-add), the payload writes, the
+    wildfire rounds (gathers, K2, one read each), the whole update; the
+    rest of the update is host bookkeeping. The layers are wrapped between
+    start() and stop() only."""
+
+    def __init__(self, torch):
+        from gtsam_petercdev_torch.inference import incremental
+        from gtsam_petercdev_torch.nonlinear import isam2
+
+        self.torch = torch
+        E, I = incremental.IncrementalEngine, isam2.ISAM2
+        self.targets = [
+            ("linearize", I, "_linearize_rows"), ("relinearization scan", E, "var_max_delta"),
+            ("host plan", E, "_build_plan"), ("scatters", incremental, "_scatter_group"),
+            ("scatters", incremental, "_scatter_msg_class"),
+            ("scatters", incremental, "_scatter_eye"), ("level steps", incremental, "_level"),
+            ("payload writes", incremental, "_scatter_pool"),
+            ("wildfire rounds", E, "_wildfire"), ("update", I, "update")]
+        self.ms = {}
+        self.saved = []
+
+    def _wrap(self, name, fn):
+        sync = self.torch.cuda.synchronize
+
+        def timed(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        return timed
+
+    def start(self):
+        for name, owner, attr in self.targets:
+            fn = owner.__dict__[attr]
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, self._wrap(name, fn))
+
+    def stop(self):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+        self.saved = []
+
+    def report(self, n_updates):
+        out = {k: v / n_updates for k, v in self.ms.items()}
+        out["other host"] = out["update"] - sum(v for k, v in out.items() if k != "update")
+        return out
+
+
+def run_isam2(torch, here, v1):
+    """Phase 6: the gates (card vs CPU, the reference contract), then the
+    full City10000-parameter run on the card with its profile."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.linear import solve as linsolve
+    from gtsam_petercdev_torch.models.city10000 import run_city10000
+    from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
+    from gtsam_petercdev_torch.nonlinear.isam2 import ISAM2, ISAM2Params
+    from gtsam_petercdev_torch.nonlinear.optimizers import OptimizerParams, gauss_newton
+    from gtsam_petercdev_torch.nonlinear.values import Values
+    from gtsam_petercdev_torch.slam.factors import between_factor, prior_factor
+    from gtsam_petercdev_torch.utils import synthetic
+
+    lines, gt = synthetic.city_stream(CITY_POSES, seed=SEED)
+    # the Bayes tree's counters: the card's tree must be the CPU path's
+    counters = ("n_relinearized", "n_new_factors", "n_affected_cliques", "n_orphans",
+                "n_reeliminated", "n_cliques")
+
+    # a) the card against the CPU path on the stream's first lines
+    path = write_stream(here, lines, CITY_GATE_LINES)
+    t0 = time.perf_counter()
+    runs = {dev: run_city10000(path, device=dev) for dev in ("cuda", "cpu")}
+    a, b = runs["cuda"].estimate, runs["cpu"].estimate
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    ups = list(zip(runs["cuda"].updates, runs["cpu"].updates))
+    diff = [(i, k, getattr(u, k), getattr(v, k)) for i, (u, v) in enumerate(ups)
+            for k in counters if getattr(u, k) != getattr(v, k)]
+    # wildfire 0.0 descends while a clique's change is > 0: where the exact
+    # answer is "no change", rounding in another order (the card's index_add_
+    # sums) can leave 1e-17 and one more round; reported, not gated
+    rounds = [(i, u.wildfire_rounds, v.wildfire_rounds) for i, (u, v) in enumerate(ups)
+              if u.wildfire_rounds != v.wildfire_rounds]
+    bad = [sum(int(u.bad_pivots) for u in r.updates) for r in runs.values()]
+    log(f"iSAM2 gate a) {CITY_GATE_LINES} lines, card vs CPU: estimates rel {rel:.3e}; per-update "
+        f"tree counters {counters} identical in {len(ups) - len({d[0] for d in diff})} of "
+        f"{len(ups)} updates (differences (update, counter, card, CPU): {diff[:8]}); wildfire "
+        f"rounds differ in {len(rounds)} updates {rounds[:8]} (card "
+        f"{sum(u.wildfire_rounds for u, _ in ups)}, CPU {sum(v.wildfire_rounds for _, v in ups)} "
+        f"in all); bad pivots (card, CPU) {bad}; "
+        f"{runs['cuda'].n_poses} poses {runs['cuda'].n_loop_closures} loops "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (rel <= 1e-9 and not diff and bad == [0, 0]):
+        raise AssertionError("iSAM2: the card and the CPU path disagree")
+    del runs
+
+    # b) the reference contract (tests/test_isam2.py:102-146) on the card:
+    # no relinearization, wildfire 0; after every 6th update the delta is
+    # the dense solve of the same linearized system
+    rng = np.random.default_rng(SEED)
+    gtc = [np.zeros(3)]
+    for _ in range(1, CONTRACT_POSES):
+        gtc.append(synthetic.pose2_compose_np(gtc[-1], np.array([1.0, 0.0, rng.normal() * 0.3])))
+    info = torch.eye(3, dtype=torch.float64, device="cuda")
+    isam = ISAM2(ISAM2Params(enable_relinearization=False, wildfire_threshold=0.0, device="cuda"))
+    full_g, full_v = NonlinearFactorGraph(device="cuda"), Values(device="cuda")
+    worst = 0.0
+    for i in range(CONTRACT_POSES):
+        nf, nv = NonlinearFactorGraph(device="cuda"), Values(device="cuda")
+        if i == 0:
+            guess = gtc[0]
+            facs = [(prior_factor("Pose2"), [0], gtc[0], info / 0.05)]
+        else:
+            guess = synthetic.pose2_compose_np(gtc[i], rng.normal(size=3) * 0.1)
+            facs = [(between_factor("Pose2"), [i - 1, i],
+                     synthetic.pose2_between_np(gtc[i - 1], gtc[i]), info / 0.1)]
+            if i % 5 == 0 and i >= 10:
+                facs.append((between_factor("Pose2"), [i - 10, i],
+                             synthetic.pose2_between_np(gtc[i - 10], gtc[i]), info / 0.1))
+        for vals in (nv, full_v):
+            vals.insert(i, "Pose2", guess)
+        for graph in (nf, full_g):
+            for f in facs:
+                graph.add(*f)
+        isam.update(nf, nv)
+        if i % 6 == 0 or i == CONTRACT_POSES - 1:
+            H, g = linsolve.assemble_dense(full_g.linearize(full_v))
+            xb = linsolve.dense_solve(H, g, 0.0).reshape(-1, 3)
+            worst = max(worst, (isam.delta()["Pose2"] - xb).abs().max().item())
+    log(f"iSAM2 gate b) reference contract, {CONTRACT_POSES} poses on the card: delta vs dense "
+        f"oracle max abs {worst:.3e} (atol 1e-9)")
+    if not worst <= 1e-9:
+        raise AssertionError(f"iSAM2: delta differs from the dense oracle by {worst:.3e}")
+    del isam, full_g, full_v
+
+    # c) the full run at City10000's parameters; counters reset just before.
+    # Two windows of PROFILE_UPDATES updates near the end: one timed by
+    # layer (synchronized timers), then one under torch.profiler
+    path = write_stream(here, lines, CITY_LINES)
+    first = CITY_LINES - 10 - PROFILE_UPDATES
+    split = first - 10 - PROFILE_UPDATES
+    from torch.profiler import ProfilerActivity, profile
+
+    window = {}
+    timer = LayerTimer(torch)
+
+    def step_cb(k, isam):
+        window["isam"] = isam
+        if k == split:
+            timer.start()
+        elif k == split + PROFILE_UPDATES:
+            timer.stop()
+        elif k == first:
+            torch.cuda.synchronize()
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        elif k == first + PROFILE_UPDATES:
+            torch.cuda.synchronize()
+            window["ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            window["prof"].stop()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    v1.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_city10000(path, device="cuda", progress_every=500, step_cb=step_cb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, cuda_launches = v1.launch_counts(), v1.cuda_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    isam = window["isam"]
+    n_up = len(res.updates)
+    # per-update times outside the two windows (their timers and profiler
+    # slow the updates they cover)
+    st = np.asarray([t for k, t in enumerate(res.step_times)
+                     if not (split <= k < split + PROFILE_UPDATES
+                             or first <= k < first + PROFILE_UPDATES)]) * 1e3
+    layers = timer.report(PROFILE_UPDATES)
+    bad = int(sum(u.bad_pivots for u in res.updates if torch.is_tensor(u.bad_pivots)))
+    reelim = [u.n_reeliminated for u in res.updates]
+    reads = isam.engine.n_reads / (n_up + 1)  # the prior's update too
+    from torch.autograd import DeviceType
+
+    kern = [e for e in window["prof"].key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    n_kern = sum(e.count for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    ate = res.ate_rmse(gt)
+    err = isam.error()
+    graph, est = isam._as_graph(), isam.calculate_estimate()
+    gn = gauss_newton(graph, est, OptimizerParams(solver="multifrontal", max_iterations=5),
+                      device="cuda")
+    out = dict(
+        lines=n_up, poses=res.n_poses, loops=res.n_loop_closures, wall_s=wall,
+        step_ms=dict(mean=float(st.mean()), p50=float(np.percentile(st, 50)),
+                     p90=float(np.percentile(st, 90)), p99=float(np.percentile(st, 99)),
+                     max=float(st.max())),
+        launches=launches, cuda_launches=cuda_launches,
+        launches_per_update={k: v / n_up for k, v in launches.items()},
+        layers_ms_per_update=layers,
+        window_updates=PROFILE_UPDATES, window_ms=window["ms"], window_busy_ms=busy,
+        window_busy_share=busy / window["ms"],
+        window_cuda_launches_per_update=n_kern / PROFILE_UPDATES,
+        reads_per_update=reads, reelim_mean=float(np.mean(reelim)), reelim_max=int(max(reelim)),
+        peak_mib=peak, ate_rmse=ate, error=err, batch_gn_error=gn.error,
+        batch_gn_history=gn.error_history, bad_pivots=bad)
+    log(f"iSAM2 run c) {n_up} lines ({res.n_poses} poses, {res.n_loop_closures} loop closures) in "
+        f"{wall:.1f} s: per-update ms mean {st.mean():.3f} p50 {out['step_ms']['p50']:.3f} p90 "
+        f"{out['step_ms']['p90']:.3f} p99 {out['step_ms']['p99']:.3f} max {st.max():.3f}")
+    per = ", ".join(f"{k} {v / n_up:.3f}" for k, v in launches.items())
+    log(f"iSAM2 run c) wrapper launches {launches} ({per} per update); CUDA launches "
+        f"{cuda_launches}")
+    log(f"iSAM2 run c) by layer, {PROFILE_UPDATES} updates from update {split} (synchronized "
+        f"timers; ms per update, share of the update): "
+        + "; ".join(f"{k} {v:.3f} ({100.0 * v / layers['update']:.1f}%)"
+                    for k, v in layers.items()))
+    log(f"iSAM2 run c) profiled window of {PROFILE_UPDATES} updates (from update {first}): "
+        f"{window['ms']:.1f} ms wall (profiler on), device busy {busy:.3f} ms = "
+        f"{100.0 * busy / window['ms']:.2f}%, {n_kern} kernel launches = "
+        f"{n_kern / PROFILE_UPDATES:.1f} per update; top kernels by device time:")
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
+    log(f"iSAM2 run c) device->host reads per update {reads:.2f}; n_reeliminated mean "
+        f"{out['reelim_mean']:.2f} max {out['reelim_max']}; peak device memory {peak:.1f} MiB; "
+        f"bad pivots {bad}; ATE-RMSE {ate:.4f} (stream ground truth)")
+    log(f"iSAM2 run c) final error {err:.6e}; batch GN (multifrontal, card) of the final graph from "
+        f"the iSAM2 estimate: {['%.6e' % e for e in gn.error_history]}")
+    finite = all(x == x and abs(x) != float("inf") for x in [err, ate] + list(gn.error_history))
+    if not (finite and bad == 0 and launches["backsolve_bucket"] > 0
+            and launches["partial_cholesky_blocks"] > 0):
+        raise AssertionError(f"iSAM2 run c) failed its gates: finite {finite}, bad pivots {bad}, "
+                             f"launches {launches}")
+    if not (np.isfinite(res.estimate).all() and res.estimate.shape == (res.n_poses, 3)):
+        raise AssertionError("iSAM2 run c) estimate is not finite poses")
+    return out
+
+
 def main():
     try:
         import torch
@@ -494,6 +800,7 @@ def main():
         return 1
     sys.path.insert(0, here)
     kernels_only = "--kernels-only" in sys.argv[1:]
+    isam2_only = "--isam2-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -530,13 +837,36 @@ def main():
         if n_dmma == 0:
             raise AssertionError("the f64 Schur update has no DMMA instruction")
 
+    # the iSAM2 path's d = 3 buckets: every recorded shape is checked in
+    # phase 3, and each kernel timed over a sweep of the shapes it takes
+    isam2_level, isam2_wild = isam2_shapes(here)
+    isam2_cases = list(dict.fromkeys([(B, nf, ns, 3) for B, nf, ns, _, _ in isam2_level]
+                                     + [(B, nf, ns, 3) for B, nf, ns in isam2_wild]))
+    isam2_timed = {}
+    for name, col in (("float64", 3), ("float32", 4)):
+        isam2_timed[name] = {"backsolve_bucket": [(B, nf, ns, 3) for B, nf, ns in isam2_wild]}
+        for b in isam2_level:
+            isam2_timed[name].setdefault(ROUTE_KERNEL[b[col]], []).append(b[:3] + (3,))
+    log(f"iSAM2 d = 3 buckets ({ISAM2_SHAPES}): {len(isam2_level)} level shapes, "
+        f"{len(isam2_wild)} wildfire shapes, {len(isam2_cases)} distinct")
+
+    if isam2_only:
+        # a check of this path alone: its kernels at their d = 3
+        # shapes, then phase 6; no result line
+        check_kernels(torch, (v2, v1, kernels), isam2_cases, isam2_timed, extras=False)
+        run_isam2(torch, here, v1)
+        log(f"iSAM2-only run passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+
     if kernels_only:
         # checked at a dozen shapes (the BA leaf, ragged K4 groups, both K2
-        # modes among them); timed over the bench plans' buckets as the full
-        # run times them, their shapes and routes read from BENCH_SHAPES
+        # modes among them) and the iSAM2 path's; timed over the bench plans'
+        # buckets as the full run times them, their shapes and routes read
+        # from BENCH_SHAPES
         cases = PALLAS_TEST_SHAPES + EXTRA_SHAPES + [
             (395, 1, 4, 6), (2, 12, 16, 6), BA_LEAF, (17, 1, 4, 9), (9, 1, 3, 6), (3, 1, 0, 9),
-            (2, 3, 24, 9), (1, 12, 24, 9), (1, 24, 0, 9), (5, 3, 24, 9), (2, 24, 64, 6)]
+            (2, 3, 24, 9), (1, 12, 24, 9), (1, 24, 0, 9), (5, 3, 24, 9), (2, 24, 64, 6)
+        ] + isam2_cases
         with open(os.path.join(here, BENCH_SHAPES)) as f:
             plans = json.load(f)
         timed = {}
@@ -617,7 +947,7 @@ def main():
     all_maps = ((bench_maps, 6), (opt_maps, 6), (ba_bench_maps, 9), (ba_maps[2], 9))
     cases = list(dict.fromkeys(
         [(bm.B, bm.nf, bm.ns, d) for maps, d in all_maps for bm in maps.buckets]
-        + PALLAS_TEST_SHAPES + EXTRA_SHAPES))
+        + PALLAS_TEST_SHAPES + EXTRA_SHAPES + isam2_cases))
     timed = {}
     for name, itemsize in (("float64", 8), ("float32", 4)):
         timed[name] = {k: [] for k in KERNELS}
@@ -628,6 +958,9 @@ def main():
     t0 = time.perf_counter()
     kres = check_kernels(torch, (v2, v1, kernels), cases, timed)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ires = check_kernels(torch, (v2, v1, kernels), [], isam2_timed, extras=False)
+    log(f"iSAM2 d = 3 sweeps: {time.perf_counter() - t0:.1f} s")
 
     # 4. the sphere path, through the entry points
     v1.reset_launch_counts()
@@ -778,30 +1111,46 @@ def main():
             log(f"BA linearize {name} alone: device busy {prof[0]:.3f} ms, {prof[1]} kernel "
                 f"launches; top kernels: "
                 + "; ".join(f"{kms:.3f} ms {calls}x {key[:60]}" for key, kms, calls in prof[2]))
+    log(f"BA phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # 6. the iSAM2 path (float64), through run_city10000 / ISAM2.update
+    isam2 = run_isam2(torch, here, v1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 6. result lines
+    # 7. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
         for r in (f64, f32):
             r.pop("per_bucket", None)  # printed above, one line per kernel and dtype
             r.pop("sweep_cuda_launches_per_bucket")  # printed above; the main paths' count below
+        isw = {}  # this kernel's sweep of the iSAM2 path's d = 3 buckets
+        for name in ("float64", "float32"):
+            r = ires[kname].get(name)
+            if r:
+                isw[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], device_ms=r["device_ms"],
+                                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                                 buckets=r["buckets_timed"])
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname], max_abs_err=f64["max_abs_err"], ms=f64["ms"],
+            launches=launches[kname] + isam2["launches"][kname],
+            max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
             launches_sphere_path=sphere_launches[kname], launches_ba_path=ba_launches[kname],
-            cuda_launches=cuda_launches[kname],
-            cuda_launches_per_bucket=cuda_launches[kname] / max(1, launches[kname]),
+            launches_isam2_path=isam2["launches"][kname],
+            isam2_launches_per_update=isam2["launches_per_update"][kname], isam2_d3_sweep=isw,
+            cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname],
+            cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname])
+            / max(1, launches[kname] + isam2["launches"][kname]),
             stage_sources=STAGE_SOURCES.get(kname, []),
             k1_same_buckets_ms=f64.get("k1_same_buckets_ms"),
             timed=f"one sweep of the {f64['buckets_timed']} buckets the routing gives this "
                   f"kernel in the sphere and BA bench plans",
         ))
+    isam2.pop("batch_gn_history")
     print(json.dumps({"kernels": out, "gn_ms_per_iter": step_ms,
-                      "ba_lm_iters_per_s": ba_iters_per_s}), flush=True)
+                      "ba_lm_iters_per_s": ba_iters_per_s, "isam2": isam2}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

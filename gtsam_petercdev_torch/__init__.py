@@ -10,20 +10,23 @@ Device rule: every public entry point takes `device=` and defaults to
 "cuda"; without a CUDA device it raises unless the caller passes
 `device="cpu"` (see `device.py`).
 
-Ported so far (the batch Pose3 solve and bundle adjustment):
+Ported so far (the batch Pose3 solve, bundle adjustment, iSAM2):
   core/       manifold registry, keys / symbols
   geometry/   so3, rot2, pose2, pose3, calibrations, cameras
   linear/     noise models, dense solve and matrix-free products
-  nonlinear/  Values, NonlinearFactorGraph, GN / LM
+  nonlinear/  Values, NonlinearFactorGraph, GN / LM, ISAM2
   slam/       prior / between factors (analytic Pose3 Jacobians),
               projection factors
   sfm/        SfmCamera manifold, BAL reader, landmark Schur solver
-  models/     synthetic BA rigs, the bundle-adjustment pipeline
-  inference/  symbolic planner, plain bucket kernels, multifrontal solver
+  models/     synthetic BA rigs, the bundle-adjustment pipeline, the
+              City10000 harness
+  inference/  symbolic planner, plain bucket kernels, multifrontal solver,
+              the incremental Bayes-tree engine
   ops/        the four CUDA bucket kernels: partial Cholesky (global-memory
               and shared-memory working copy, dense and block-pool input)
               and the fused backsolve
-  utils/      numpy -> port conversion, synthetic Pose3 ring graphs
+  utils/      numpy -> port conversion, synthetic Pose3 ring graphs and a
+              City10000-like Pose2 stream
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,918 @@
+"""Incremental supernodal elimination — the Bayes tree, its payloads on the card.
+
+Port of gtsam_petercdev_tpu/inference/incremental.py, the design of its
+"jax" backend (host Bayes tree, shape-class pools on the device, index maps
+passed at run time). Reference: gtsam/nonlinear/ISAM2.cpp:117-363
+(recalculate), inference/BayesTree-inst.h:464-501 (removeTop / orphans),
+ISAM2Clique.{h,cpp} (cached separator factors, wildfire back-substitution).
+
+* The Bayes tree lives as HOST records (CliqueRec: frontal / separator
+  gids, parent / children, owned factor rows) plus DEVICE pools: for each
+  clique shape class (nf, ns) one set of tensors L / Linv / W / y / U / ug
+  with a free list. A clique's numeric payload is one row of its class
+  pool; U / ug is its cached separator factor (ISAM2Clique::cachedFactor_),
+  kept in the d x d block layout the parent's block pool adds it in.
+
+* update(...) does the reference's removeTop: affected cliques = ancestor
+  closure of the cliques holding marked keys (frontal occurrence for
+  new-factor keys, the containment subtree for relinearized keys).
+  Children of affected cliques that are not affected themselves become
+  ORPHANS; their cached (U, ug) re-enter the local elimination as dense
+  message factors (ISAM2.cpp:286-300).
+
+* The local problem (owned factors of the affected cliques, orphan
+  messages, new factors) is assembled into one block pool [n_blocks + 1,
+  d*d] by index_add_ and eliminated level by level, one bucket a level
+  (`level_route`): K4 (`ops.cholesky.partial_cholesky_blocks`) factors the
+  pool slice in place when a clique fits shared memory, else K1
+  (`ops.cholesky_v2.partial_cholesky`) factors its dense relayout; U / ug
+  are extend-added into the parents' blocks of the same pool. Every
+  level's frontal blocks are complete before the level runs (the children
+  are in earlier levels), so K4 takes any bucket that fits, not only
+  leaves. The index maps of a local problem depend on its structure alone
+  and are cached on the device (`_LocalPlan`): the steady odometry update
+  uploads no map.
+
+* Back-substitution is "wildfire" (ISAM2Clique.cpp:237): a host-driven
+  frontier descent from the re-eliminated cliques, one K2 launch
+  (`ops.cholesky_v2.backsolve_bucket`, fused y - W xs) per round and shape
+  class, that stops descending into subtrees whose separator delta changed
+  by no more than the threshold. threshold = 0 descends fully (exact).
+
+* Variables never move: gid = insertion order; the delta is one device
+  tensor x [xcap + 1, d] (row xcap is a zero trash row) that grows by
+  doubling.
+
+The bucket kernels take their plain PyTorch versions on CPU tensors and
+their CUDA kernels on CUDA tensors (no fallback): the engine is one code
+path on either device. Buckets keep their exact clique counts (the JAX
+engine pads them to classes that bound its jit signatures; eager PyTorch
+has no signatures to bound), while clique shapes keep the power-of-two
+classes that make cliques share pools. Device -> host reads (the
+relinearization scan, one per wildfire round) are counted in `n_reads`.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Dict, List, NamedTuple, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as tnf
+
+from gtsam_petercdev_torch.device import DeviceLike, resolve_device, resolve_dtype
+from gtsam_petercdev_torch.inference.symbolic import ccolamd_ordering, symbolic_eliminate
+from gtsam_petercdev_torch.ops import cholesky, cholesky_v2
+
+
+def _pad(x: int) -> int:
+    """The next power of two (at least 1)."""
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def _pad_class(x: int) -> int:
+    """Clique shape classes (nf / ns blocks), powers of two: cliques of
+    nearby shapes share one pool."""
+    return _pad(x)
+
+
+# ---------------------------------------------------------------------------
+# device pools
+# ---------------------------------------------------------------------------
+
+
+class PoolArrays(NamedTuple):
+    """One shape class's clique payloads, a row per clique."""
+
+    L: torch.Tensor  # [cap, fd, fd]
+    Linv: torch.Tensor  # [cap, nf, d, d]
+    W: torch.Tensor  # [cap, fd, sd]
+    y: torch.Tensor  # [cap, fd]
+    U: torch.Tensor  # [cap, ns*ns, d, d] row-major d x d blocks of F22 - W^T W
+    ug: torch.Tensor  # [cap, ns, d]
+
+
+@dataclass
+class PoolClass:
+    nf: int
+    ns: int
+    cap: int
+    arrays: PoolArrays
+    free: List[int] = field(default_factory=list)
+    top: int = 0
+
+    def alloc(self) -> int:
+        if self.free:
+            return self.free.pop()
+        if self.top >= self.cap:
+            return -1  # caller grows
+        r = self.top
+        self.top += 1
+        return r
+
+
+def _make_pool(nf, ns, d, cap, dtype, device) -> PoolArrays:
+    fd, sd = nf * d, ns * d
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
+    return PoolArrays(L=z(cap, fd, fd), Linv=z(cap, nf, d, d), W=z(cap, fd, sd), y=z(cap, fd),
+                      U=z(cap, ns * ns, d, d), ug=z(cap, ns, d))
+
+
+def _grow_pool(p: PoolClass, d) -> PoolClass:
+    """The class with twice the rows (at least 16), old rows copied."""
+    new_cap = max(16, 2 * p.cap)
+    old = p.arrays
+    na = _make_pool(p.nf, p.ns, d, new_cap, old.L.dtype, old.L.device)
+    for dst, src in zip(na, old):
+        dst[: p.cap] = src
+    return PoolClass(p.nf, p.ns, new_cap, na, p.free, p.top)
+
+
+# ---------------------------------------------------------------------------
+# host records
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class CliqueRec:
+    cid: int
+    cls: Tuple[int, int]  # (nf, ns) pool class
+    row: int  # pool row
+    frontal: List[int]  # gids, elimination order
+    separator: List[int]  # gids, local-plan position order
+    parent: int = -1  # cid
+    children: Set[int] = field(default_factory=set)
+    owned_fac: List[Tuple[int, int]] = field(default_factory=list)  # (group, row)
+    owned_msg: List[int] = field(default_factory=list)  # persistent msg ids
+    alive: bool = True
+
+
+@dataclass
+class FactorGroup:
+    """Device store of one linear-factor family's cached linearization."""
+
+    gid: int
+    K: int
+    dims: Tuple[int, ...]
+    sign: float
+    cap: int
+    A: Tuple[torch.Tensor, ...]  # per slot [cap, d, dim_k]
+    b: torch.Tensor  # [cap, d]
+    keys: np.ndarray  # [cap, K] gids (host)
+    n: int = 0
+
+
+@dataclass
+class MsgRec:
+    """Persistent marginal factor (what marginalize_leaves leaves behind)."""
+
+    mid: int
+    ns: int  # pool class
+    row: int  # row in the engine's msg pool for class ns
+    scope: List[int]  # gids
+    alive: bool = True
+
+
+@dataclass
+class _LocalPlan:
+    """Cached structural plan of one local re-elimination: every index map
+    is a function of the local problem's STRUCTURE only, uploaded once and
+    reused on every cache hit (the odometry steady state)."""
+
+    # per factor-gather entry (sorted group order): (g, N, blk [N*K*K],
+    # gix [N*K] on the device, own_lcid [N] local clique owning each row)
+    fac: List[Tuple]
+    # per message class: (src, pkey, nsc, blk [M*nsc*nsc], gix [M*nsc],
+    # entry_order [M] indices into the update's msg entries, own_lcid [M])
+    msg: List[Tuple]
+    eye_rows: torch.Tensor  # [P] pool rows that get identity (padding)
+    eye_vals: torch.Tensor  # [P, d*d]
+    ext: List[Tuple[torch.Tensor, torch.Tensor]]  # per level (ext [B*ns*ns], extg [B*ns])
+    # per level: (nf, ns, B, cliques: [(local cid, frontal_lv, separator_lv,
+    # parent local cid)]) where *_lv index local_vars
+    levels_meta: List[Tuple]
+    n_cliques: int
+    n_blocks: int
+    n_grows: int
+    lvl_offsets: Tuple  # per level (block offset, gradient-row offset)
+
+    @property
+    def nbytes(self) -> int:
+        ts = [self.eye_rows, self.eye_vals]
+        ts += [t for e in self.fac for t in e[2:4]] + [t for e in self.msg for t in e[3:5]]
+        ts += [t for e in self.ext for t in e]
+        return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# device pool operations (plain functions on tensors, in place)
+# ---------------------------------------------------------------------------
+
+
+def _scatter_pool(pool: PoolArrays, rows: torch.Tensor, out: Dict) -> None:
+    """Write one level's clique payloads into their class pool rows."""
+    for name, dst in zip(PoolArrays._fields, pool):
+        dst.index_copy_(0, rows, out[name])
+
+
+def _gather_msgs(U: torch.Tensor, ug: torch.Tensor, rows: torch.Tensor):
+    return U.index_select(0, rows), ug.index_select(0, rows)
+
+
+def _gather_fac(A, b, rows: torch.Tensor):
+    return tuple(Ak.index_select(0, rows) for Ak in A), b.index_select(0, rows)
+
+
+def _set_rows(A, b, rows: torch.Tensor, Anew, bnew) -> None:
+    """Overwrite a factor group's cached linearization rows."""
+    for Ak, An in zip(A, Anew):
+        Ak.index_copy_(0, rows, An.to(Ak.dtype))
+    b.index_copy_(0, rows, bnew.to(b.dtype))
+
+
+def _copy_msg(dstU, dstug, drows, srcU, srcug, srows) -> None:
+    """Copy cached separator messages between pools (clique -> marginal)."""
+    dstU.index_copy_(0, drows, srcU.index_select(0, srows))
+    dstug.index_copy_(0, drows, srcug.index_select(0, srows))
+
+
+def _new_pool(n_blocks: int, n_grows: int, d: int, dtype, device):
+    """A zero block pool [n_blocks + 1, d*d] and gradient rows [n_grows + 1,
+    d]; the last row of each is the trash row padded maps point at."""
+    return (torch.zeros((n_blocks + 1, d * d), dtype=dtype, device=device),
+            torch.zeros((n_grows + 1, d), dtype=dtype, device=device))
+
+
+def _scatter_group(pool, gp, A, b, blk, gix, sign: float, d: int) -> None:
+    """Add one factor group's Hessian blocks A_k^T A_l (every (k, l) pair,
+    both triangles) and gradients A_k^T b into the pool."""
+    Ap = torch.stack([tnf.pad(Ak, (0, d - Ak.shape[2])) for Ak in A], dim=1)  # [N, K, d, d]
+    H = torch.einsum("nkri,nlrj->nklij", Ap, Ap)
+    g = torch.einsum("nkri,nr->nki", Ap, b)
+    if sign != 1.0:
+        H, g = H * sign, g * sign
+    pool.index_add_(0, blk, H.reshape(-1, d * d))
+    gp.index_add_(0, gix, g.reshape(-1, d))
+
+
+def _scatter_msg_class(pool, gp, U, ug, blk, gix) -> None:
+    """Add one class of cached messages (U in block layout) into the pool."""
+    d = ug.shape[-1]
+    pool.index_add_(0, blk, U.reshape(-1, d * d))
+    gp.index_add_(0, gix, ug.reshape(-1, d))
+
+
+def _scatter_eye(pool, rows, vals) -> None:
+    pool.index_add_(0, rows, vals)
+
+
+def _max_abs(x: torch.Tensor) -> torch.Tensor:
+    return x.abs().amax(dim=1)
+
+
+def _zero_rows(x: torch.Tensor, idx: torch.Tensor) -> None:
+    x.index_fill_(0, idx, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the level step and the wildfire round
+# ---------------------------------------------------------------------------
+
+
+def level_route(nf: int, ns: int, d: int, itemsize: int) -> str:
+    """Which kernel factors a level bucket of the incremental engine:
+    "blocks" (K4, on the pool slice in place) when a clique of the shape
+    fits shared memory, else "global" (K1, on the dense relayout). Unlike
+    the batch solver's `elimination.bucket_route`, any level may take K4:
+    children have extend-added into the pool before a level runs."""
+    return "blocks" if cholesky.fits_smem(nf, ns, d, itemsize) else "global"
+
+
+def _level(pool, gp, boff: int, goff: int, B: int, nf: int, ns: int, d: int, ext, extg) -> Dict:
+    """Eliminate one level bucket of B cliques whose frontal blocks are
+    pool[boff : boff + B*mb*mb], then extend-add each clique's U / ug into
+    its parent's blocks (ext / extg; pads point at the trash rows).
+    Returns L, Linv, W, y, U [B, ns*ns, d, d], ug [B, ns, d], bad."""
+    mb = nf + ns
+    blocks = pool[boff : boff + B * mb * mb]
+    gblocks = gp[goff : goff + B * mb]
+    if level_route(nf, ns, d, pool.element_size()) == "blocks":
+        out = cholesky.partial_cholesky_blocks(blocks.view(-1, d, d), gblocks.view(B, mb, d),
+                                               nf, ns, d)
+        out["U"], out["ug"] = out.pop("U_blocks"), out.pop("ug_blocks")
+    else:
+        out = cholesky_v2.partial_cholesky(cholesky.dense_from_blocks(blocks, B, mb, d),
+                                           gblocks.reshape(B, mb * d), nf, d)
+        out["U"] = cholesky.blocks_from_dense(out["U"], ns, d)
+        out["ug"] = out["ug"].reshape(B, ns, d)
+    if ns > 0:
+        pool.index_add_(0, ext, out["U"].reshape(-1, d * d))
+        gp.index_add_(0, extg, out["ug"].reshape(-1, d))
+    return out
+
+
+def _wild(pc: PoolClass, rows, sep_idx, fro_idx, x, nf: int, ns: int, d: int) -> torch.Tensor:
+    """One wildfire round for one shape class: K2 solves the cliques at pool
+    `rows` given their separators' x (L^T x_f = y - W x_s), writes their
+    frontal rows of x, and returns each clique's largest change [B]."""
+    a = pc.arrays
+    B = rows.shape[0]
+    xs = x.index_select(0, sep_idx.reshape(-1)).reshape(B, ns * d)
+    xf = cholesky_v2.backsolve_bucket(a.L.index_select(0, rows), a.Linv.index_select(0, rows),
+                                      a.W.index_select(0, rows), a.y.index_select(0, rows),
+                                      xs, nf, d)
+    fro = fro_idx.reshape(-1)
+    change = (xf - x.index_select(0, fro).reshape(B, nf * d)).abs().amax(dim=1)
+    # padded frontal slots all point at the trash row and solve to exact zeros
+    x.index_copy_(0, fro, xf.reshape(B * nf, d))
+    return change
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+
+class IncrementalEngine:
+    """Linear-level incremental multifrontal solver (GaussianISAM analog).
+
+    The nonlinear wrapper (nonlinear/isam2.py) owns linearization points
+    and the relinearization policy; this engine owns the Bayes tree, the
+    cached linear factors, and the delta x [n, d] (gid order, padded to d),
+    all on `device` (default "cuda"; raises without a card unless "cpu")."""
+
+    def __init__(self, d: int, dtype=torch.float64, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(dtype)
+        self.d = d
+        self.n = 0  # variables (gids 0..n-1)
+        self.var_dims = np.zeros(0, dtype=np.int64)
+        self.xcap = 1024
+        self.x = torch.zeros((self.xcap + 1, d), dtype=self.dtype, device=self.device)
+        self.pools: Dict[Tuple[int, int], PoolClass] = {}
+        self.msg_pools: Dict[int, PoolClass] = {}  # persistent marginals
+        self.cliques: List = []  # CliqueRec or None (retired)
+        self.var_clique: Dict[int, int] = {}  # gid -> cid (frontal owner)
+        self.groups: List[FactorGroup] = []
+        self._group_key: Dict[Tuple, int] = {}
+        self.var_factors: Dict[int, List[Tuple[int, int]]] = {}  # gid -> [(g, row)]
+        self.msgs: List = []  # MsgRec
+        self.n_live = 0  # live clique count
+        # factor units excised via remove_factor_units: filtered out of
+        # owned_fac collection at the next re-elimination touching them
+        self.removed_units: Set[Tuple[int, int]] = set()
+        # structural local-plan cache, LRU by count and by index-map bytes
+        self._plan_cache: "OrderedDict[Tuple, _LocalPlan]" = OrderedDict()
+        self._plan_cache_cap = 128
+        self._plan_cache_bytes = 0
+        self._plan_cache_byte_cap = 64 * 2**20
+        self.n_reads = 0  # device -> host reads
+
+    def _upload(self, a, dtype=torch.int64) -> torch.Tensor:
+        """A host array as a NEW tensor on the engine's device. Host records
+        (factor keys, plan maps) are edited in place, so an upload never
+        aliases them; the copy also makes the transfer safe to issue
+        without waiting for the device."""
+        t = torch.tensor(np.asarray(a), dtype=dtype)
+        return t.to(self.device, non_blocking=True)
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """A device tensor on the host (counted: each read waits for the card)."""
+        self.n_reads += 1
+        return t.cpu().numpy()
+
+    # -- variables / factors ------------------------------------------------
+
+    def add_variables(self, dims: Sequence[int]) -> List[int]:
+        gids = list(range(self.n, self.n + len(dims)))
+        self.n += len(dims)
+        self.var_dims = np.concatenate([self.var_dims, np.asarray(dims, dtype=np.int64)])
+        if self.n > self.xcap:
+            old = self.xcap
+            while self.n > self.xcap:
+                self.xcap *= 2
+            nx = torch.zeros((self.xcap + 1, self.d), dtype=self.dtype, device=self.device)
+            nx[:old] = self.x[:old]
+            self.x = nx
+        return gids
+
+    def group_for(self, key: Tuple, K: int, dims: Tuple[int, ...], sign: float) -> int:
+        g = self._group_key.get(key)
+        if g is not None:
+            return g
+        g = len(self.groups)
+        cap = 64
+        z = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
+        self.groups.append(FactorGroup(
+            gid=g, K=K, dims=tuple(dims), sign=float(sign), cap=cap,
+            A=tuple(z(cap, self.d, dk) for dk in dims), b=z(cap, self.d),
+            keys=np.zeros((cap, K), dtype=np.int64)))
+        self._group_key[key] = g
+        return g
+
+    def _grow_group(self, fg: FactorGroup, need: int):
+        cap = fg.cap
+        while cap < need:
+            cap *= 2
+        z = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
+        A = tuple(z(cap, self.d, dk) for dk in fg.dims)
+        for An, Ak in zip(A, fg.A):
+            An[: fg.cap] = Ak
+        b = z(cap, self.d)
+        b[: fg.cap] = fg.b
+        keys = np.zeros((cap, fg.K), dtype=np.int64)
+        keys[: fg.n] = fg.keys[: fg.n]
+        fg.A, fg.b, fg.keys, fg.cap = A, b, keys, cap
+
+    def add_factors(self, g: int, gids: np.ndarray, A, b) -> List[int]:
+        """Append factor rows with their (already whitened) linearization."""
+        fg = self.groups[g]
+        nnew = gids.shape[0]
+        if fg.n + nnew > fg.cap:
+            self._grow_group(fg, fg.n + nnew)
+        rows = list(range(fg.n, fg.n + nnew))
+        fg.keys[fg.n : fg.n + nnew] = gids
+        self.set_factor_rows(g, rows, A, b)
+        fg.n += nnew
+        for i, r in enumerate(rows):
+            for k in range(fg.K):
+                self.var_factors.setdefault(int(gids[i, k]), []).append((g, r))
+        return rows
+
+    def set_factor_rows(self, g: int, rows, A, b):
+        """Overwrite the cached linearization of existing rows (relinearize)."""
+        fg = self.groups[g]
+        _set_rows(fg.A, fg.b, self._upload(rows), A, b)
+
+    def remove_factor_units(self, units) -> Set[int]:
+        """Excise cached factor units from the tree's bookkeeping; returns
+        the set of gids the caller must re-eliminate (update(marked=...))
+        for the information to actually leave the tree."""
+        marked: Set[int] = set()
+        for (g, r) in units:
+            u = (g, r)
+            self.removed_units.add(u)
+            fg = self.groups[g]
+            for k in range(fg.K):
+                gid = int(fg.keys[r, k])
+                marked.add(gid)
+                lst = self.var_factors.get(gid)
+                if lst:
+                    self.var_factors[gid] = [x for x in lst if x != u]
+        return marked
+
+    # -- affected-set computation (removeTop) --------------------------------
+
+    def _cliques_containing(self, gid: int) -> List[int]:
+        """All live cliques whose scope contains gid: the containment subtree
+        rooted at gid's frontal clique (BayesTree subtree property)."""
+        c0 = self.var_clique.get(gid)
+        if c0 is None:
+            return []
+        out, stack = [], [c0]
+        while stack:
+            cid = stack.pop()
+            out.append(cid)
+            for ch in self.cliques[cid].children:
+                if gid in self.cliques[ch].separator:
+                    stack.append(ch)
+        return out
+
+    def _affected_set(self, marked: Set[int], relin: Set[int]) -> Set[int]:
+        aff: Set[int] = set()
+        seeds: Set[int] = set()
+        for gid in marked:
+            c = self.var_clique.get(gid)
+            if c is not None:
+                seeds.add(c)
+        for gid in relin:
+            seeds.update(self._cliques_containing(gid))
+        for cid in seeds:
+            while cid >= 0 and cid not in aff:
+                aff.add(cid)
+                cid = self.cliques[cid].parent
+        return aff
+
+    # -- the update -----------------------------------------------------------
+
+    def update(
+        self,
+        new_keys: Sequence[int] = (),
+        new_fac_units: Sequence[Tuple[int, int]] = (),
+        marked: Set[int] = frozenset(),
+        relin: Set[int] = frozenset(),
+        first: Sequence[int] = (),
+        wildfire_threshold: float = 0.0,
+    ) -> Dict:
+        """Re-eliminate the affected top of the tree (ISAM2::recalculate).
+
+        new_keys: gids entering the tree this update (ordered LAST —
+        ColamdConstrainedLast, inference/Ordering.cpp:128).
+        new_fac_units: (group, row) factor rows added this update.
+        marked: existing gids touched by new factors (removeTop marking).
+        relin: gids whose linearization changed (fluid containment marking).
+        first: gids to order FIRST (marginalization staging).
+        """
+        new_keys = [g for g in new_keys if g not in self.var_clique]
+        aff = self._affected_set(set(marked) | set(relin), set(relin))
+
+        orphan_cids: List[int] = []
+        fac_units: Set[Tuple[int, int]] = set(new_fac_units)
+        msg_ids: List[int] = []
+        local_vars: List[int] = list(new_keys)
+        for cid in aff:
+            c = self.cliques[cid]
+            local_vars.extend(c.frontal)
+            fac_units.update(u for u in c.owned_fac if u not in self.removed_units)
+            msg_ids.extend(mid for mid in c.owned_msg if self.msgs[mid].alive)
+            for ch in c.children:
+                if ch not in aff:
+                    orphan_cids.append(ch)
+        stats = self._reeliminate(
+            sorted(set(local_vars)), sorted(fac_units), sorted(set(msg_ids)),
+            sorted(orphan_cids), aff, new_last=list(new_keys), first=list(first),
+            wildfire_threshold=wildfire_threshold)
+        stats["n_affected_cliques"] = len(aff)
+        stats["n_orphans"] = len(orphan_cids)
+        return stats
+
+    # -- local elimination ------------------------------------------------------
+
+    def _reeliminate(
+        self,
+        local_vars: List[int],
+        fac_units: List[Tuple[int, int]],
+        msg_ids: List[int],
+        orphan_cids: List[int],
+        dead: Set[int],
+        new_last: List[int],
+        first: List[int],
+        wildfire_threshold: float = 0.0,
+    ) -> Dict:
+        d = self.d
+        m = len(local_vars)
+        if m == 0:
+            return {"n_reeliminated": 0, "bad_pivots": 0}
+        lva = np.asarray(local_vars, dtype=np.int64)
+        lid_arr = np.full(self.n, -1, dtype=np.int64)
+        lid_arr[lva] = np.arange(m)
+
+        # ---- symbolic structure + plan-cache signature ----
+        per_group: Dict[int, List[int]] = {}
+        for (g, r) in fac_units:
+            per_group.setdefault(g, []).append(r)
+        fac_entries = []  # (g, rows [N], lids [N, K])
+        sig_parts: List = [m, self.var_dims[lva].tobytes()]
+        for g in sorted(per_group):
+            fg = self.groups[g]
+            rows = np.asarray(sorted(set(per_group[g])), dtype=np.int64)
+            lids = lid_arr[fg.keys[rows]]
+            fac_entries.append((g, rows, lids))
+            sig_parts.append((g, lids.shape[0], lids.tobytes()))
+        # (src, pool key, pool row, scope lids)
+        msg_entries = []
+        for cid in orphan_cids:
+            c = self.cliques[cid]
+            sc = lid_arr[np.asarray(c.separator, dtype=np.int64)]
+            msg_entries.append(("clq", c.cls, c.row, sc))
+            sig_parts.append(("clq", c.cls, sc.tobytes()))
+        for mid in msg_ids:
+            mr = self.msgs[mid]
+            sc = lid_arr[np.asarray(mr.scope, dtype=np.int64)]
+            msg_entries.append(("msg", mr.ns, mr.row, sc))
+            sig_parts.append(("msg", mr.ns, sc.tobytes()))
+        first_l = frozenset(int(lid_arr[g]) for g in first if lid_arr[g] >= 0)
+        last_l = frozenset(int(lid_arr[g]) for g in new_last if lid_arr[g] >= 0) - first_l
+        sig_parts.append((tuple(sorted(first_l)), tuple(sorted(last_l))))
+        sig = tuple(sig_parts)
+
+        plan = self._plan_cache.get(sig)
+        if plan is None:
+            plan = self._build_plan(lva, fac_entries, msg_entries, first_l, last_l)
+            if m <= 512:  # closure cascades do not repeat structurally
+                self._plan_cache[sig] = plan
+                self._plan_cache_bytes += plan.nbytes
+                while self._plan_cache and (
+                    len(self._plan_cache) > self._plan_cache_cap
+                    or self._plan_cache_bytes > self._plan_cache_byte_cap
+                ):
+                    _, old = self._plan_cache.popitem(last=False)
+                    self._plan_cache_bytes -= old.nbytes
+        else:
+            self._plan_cache.move_to_end(sig)
+
+        # ---- assemble the block pool ----
+        own_fac: Dict[int, List[Tuple[int, int]]] = {}
+        own_msg: Dict[int, List[int]] = {}
+        orphan_owner: Dict[int, int] = {}  # orphan entry idx -> owner lcid
+        pool, gp = _new_pool(plan.n_blocks, plan.n_grows, d, self.dtype, self.device)
+        for (g, rows, _), (_, N, blk, gix, own_lcid) in zip(fac_entries, plan.fac):
+            fg = self.groups[g]
+            A, b = _gather_fac(fg.A, fg.b, self._upload(rows))
+            _scatter_group(pool, gp, A, b, blk, gix, fg.sign, d)
+            for i in range(N):
+                own_fac.setdefault(int(own_lcid[i]), []).append((g, int(rows[i])))
+        for (src, pkey, nsc, blk, gix, order, own_lcid) in plan.msg:
+            pc = self.pools[pkey] if src == "clq" else self.msg_pools[pkey]
+            prow = np.empty(len(order), dtype=np.int64)
+            for mi, ei in enumerate(order):
+                prow[mi] = msg_entries[ei][2]
+                if src == "msg":
+                    own_msg.setdefault(int(own_lcid[mi]), []).append(
+                        msg_ids[ei - len(orphan_cids)])
+                else:
+                    orphan_owner[ei] = int(own_lcid[mi])
+            U, ug = _gather_msgs(pc.arrays.U, pc.arrays.ug, self._upload(prow))
+            _scatter_msg_class(pool, gp, U, ug, blk, gix)
+        _scatter_eye(pool, plan.eye_rows, plan.eye_vals)
+
+        # ---- bottom-up level sweep ----
+        outs = []
+        bad = torch.zeros((), dtype=torch.int32, device=self.device)
+        for li, (nf, ns, B, _) in enumerate(plan.levels_meta):
+            boff, goff = plan.lvl_offsets[li]
+            ext, extg = plan.ext[li]
+            out = _level(pool, gp, boff, goff, B, nf, ns, d, ext, extg)
+            bad = bad + out["bad"]
+            outs.append(out)
+
+        # ---- retire dead cliques, free pool rows ----
+        for cid in dead:
+            c = self.cliques[cid]
+            c.alive = False
+            self.pools[c.cls].free.append(c.row)
+            self.cliques[cid] = None
+        self.n_live -= len(dead)
+
+        # ---- create new clique records + scatter payloads into pools ----
+        new_by_level: List[List[int]] = []
+        local2global: Dict[int, int] = {}
+        for li, (nf, ns, B, clqs) in enumerate(plan.levels_meta):
+            cls = (nf, ns)
+            pc = self.pools.get(cls)
+            if pc is None:
+                pc = self.pools[cls] = PoolClass(
+                    nf, ns, 0, _make_pool(nf, ns, d, 0, self.dtype, self.device))
+            rows_np = np.empty(B, dtype=np.int64)
+            lv_cids = []
+            for i, (pcid, fro_lv, sep_lv, _) in enumerate(clqs):
+                r = pc.alloc()
+                while r < 0:
+                    self.pools[cls] = pc = _grow_pool(pc, d)
+                    r = pc.alloc()
+                rows_np[i] = r
+                gcid = len(self.cliques)
+                rec = CliqueRec(
+                    cid=gcid, cls=cls, row=r,
+                    frontal=[local_vars[v] for v in fro_lv],
+                    separator=[local_vars[v] for v in sep_lv],
+                    owned_fac=own_fac.get(pcid, []), owned_msg=own_msg.get(pcid, []))
+                self.cliques.append(rec)
+                local2global[pcid] = gcid
+                lv_cids.append(gcid)
+                for gid in rec.frontal:
+                    self.var_clique[gid] = gcid
+            _scatter_pool(pc.arrays, self._upload(rows_np), outs[li])
+            new_by_level.append(lv_cids)
+        self.n_live += plan.n_cliques
+
+        # ---- wire the tree: parents/children of new cliques + orphans ----
+        for (_, _, _, clqs) in plan.levels_meta:
+            for (pcid, _, _, par) in clqs:
+                if par >= 0:
+                    gcid, pg = local2global[pcid], local2global[par]
+                    self.cliques[gcid].parent = pg
+                    self.cliques[pg].children.add(gcid)
+        for ei, cid in enumerate(orphan_cids):
+            pg = local2global[orphan_owner[ei]]
+            self.cliques[cid].parent = pg
+            self.cliques[pg].children.add(cid)
+
+        # ---- wildfire back-substitution from the new cliques ----
+        n_rounds = self._wildfire(new_by_level, wildfire_threshold)
+        return {"n_reeliminated": plan.n_cliques, "bad_pivots": bad,
+                "wildfire_rounds": n_rounds}
+
+    def _build_plan(self, lva: np.ndarray, fac_entries, msg_entries, first_l: frozenset,
+                    last_l: frozenset) -> _LocalPlan:
+        """Host symbolic planning for one local-problem STRUCTURE (cache
+        miss only): ordering, supernodes, level layout, all index maps,
+        uploaded here once."""
+        d = self.d
+        m = len(lva)
+        up = self._upload
+        factor_vars = [lids for (_, _, lids) in fac_entries] + [
+            sc[None, :] for (_, _, _, sc) in msg_entries]
+
+        # ---- ordering: [first | colamd middle | new_last] ----
+        edge_list = []
+        for fv in factor_vars:
+            K = fv.shape[1]
+            for a in range(K):
+                for b_ in range(a + 1, K):
+                    edge_list.append(np.stack([fv[:, a], fv[:, b_]], axis=1))
+        edges = np.concatenate(edge_list, axis=0) if edge_list else np.zeros((0, 2), np.int64)
+        base = ccolamd_ordering(m, edges)
+        order = np.asarray(
+            [v for v in base if v in first_l]
+            + [v for v in base if v not in first_l and v not in last_l]
+            + [v for v in base if v in last_l], dtype=np.int64)
+        plan = symbolic_eliminate(
+            m, factor_vars, d, ordering=order, max_buckets_per_level=1,
+            no_merge_across=first_l if first_l else None, pad_fn=_pad_class)
+
+        # ---- layout: one bucket per level, cliques contiguous ----
+        iperm = plan.iperm
+        cliques = plan.cliques
+        for c in cliques:
+            c._fpos = {v: i for i, v in enumerate(c.frontal)}
+            c._spos = {v: i for i, v in enumerate(c.separator)}
+
+        def cpos(c, pv):
+            p = c._fpos.get(pv)
+            return p if p is not None else c.bucket[0] + c._spos[pv]
+
+        buckets = [lv[0] for lv in plan.levels]
+        blk_base = np.zeros(len(cliques), dtype=np.int64)
+        g_base = np.zeros(len(cliques), dtype=np.int64)
+        mb_of = np.zeros(len(cliques), dtype=np.int64)
+        boff = goff = 0
+        lvl_offsets = []
+        for bk in buckets:
+            lvl_offsets.append((boff, goff))
+            mb = bk.nf + bk.ns
+            for i, cid in enumerate(bk.cliques):
+                blk_base[cid] = boff + i * mb * mb
+                g_base[cid] = goff + i * mb
+                mb_of[cid] = mb
+            boff += len(bk.cliques) * mb * mb
+            goff += len(bk.cliques) * mb
+        n_blocks, n_grows = boff, goff
+        trash_blk, trash_g = n_blocks, n_grows
+
+        # ---- factor scatter maps + ownership ----
+        plan_fac = []
+        for (g, rows, lids) in fac_entries:
+            N, K = lids.shape
+            pvs = iperm[lids]
+            own = plan.var_clique[pvs.min(axis=1)]
+            pos = np.empty((N, K), dtype=np.int64)
+            for i in range(N):
+                c = cliques[own[i]]
+                for k in range(K):
+                    pos[i, k] = cpos(c, pvs[i, k])
+            blk = (blk_base[own][:, None, None] + pos[:, :, None] * mb_of[own][:, None, None]
+                   + pos[:, None, :])
+            gix = g_base[own][:, None] + pos
+            plan_fac.append((g, N, up(blk.reshape(-1)), up(gix.reshape(-1)), own.copy()))
+
+        # ---- message scatter maps, one entry per (source, class) ----
+        by_class: Dict[Tuple, List[int]] = {}
+        for i, (src, pkey, _, _) in enumerate(msg_entries):
+            nsc = pkey[1] if src == "clq" else pkey
+            by_class.setdefault((src, pkey, nsc), []).append(i)
+        plan_msg = []
+        for (src, pkey, nsc), idxs in sorted(by_class.items(),
+                                             key=lambda kv: (kv[0][0], str(kv[0][1]))):
+            M = len(idxs)
+            blk = np.full((M, nsc, nsc), trash_blk, dtype=np.int64)
+            gix = np.full((M, nsc), trash_g, dtype=np.int64)
+            own_lcid = np.zeros(M, dtype=np.int64)
+            for mi, ei in enumerate(idxs):
+                pv = iperm[msg_entries[ei][3]]
+                ownc = cliques[plan.var_clique[pv.min()]]
+                own_lcid[mi] = ownc.cid
+                ps = np.asarray([cpos(ownc, p) for p in pv], dtype=np.int64)
+                nr = len(pv)
+                blk[mi, :nr, :nr] = blk_base[ownc.cid] + ps[:, None] * mb_of[ownc.cid] + ps[None, :]
+                gix[mi, :nr] = g_base[ownc.cid] + ps
+            plan_msg.append((src, pkey, nsc, up(blk.reshape(-1)), up(gix.reshape(-1)),
+                             list(idxs), own_lcid))
+
+        # ---- identity on padded frontal blocks and on fake dims ----
+        eye_rows, eye_vals = [], []
+        eye_flat = np.eye(d).reshape(-1)
+        for c in cliques:
+            mb = mb_of[c.cid]
+            for i in range(len(c.frontal), c.bucket[0]):
+                eye_rows.append(blk_base[c.cid] + i * mb + i)
+                eye_vals.append(eye_flat)
+            for i, pv in enumerate(c.frontal):
+                dv = int(self.var_dims[lva[plan.perm[pv]]])
+                if dv < d:
+                    v = np.zeros((d, d))
+                    v[np.arange(dv, d), np.arange(dv, d)] = 1.0
+                    eye_rows.append(blk_base[c.cid] + i * mb + i)
+                    eye_vals.append(v.reshape(-1))
+        eye_vals_np = np.stack(eye_vals) if eye_vals else np.zeros((0, d * d))
+
+        # ---- extend-add maps: each clique's U / ug into its parent ----
+        ext_maps = []
+        for bk in buckets:
+            ns = bk.ns
+            ext = np.full((len(bk.cliques), ns, ns), trash_blk, dtype=np.int64)
+            extg = np.full((len(bk.cliques), ns), trash_g, dtype=np.int64)
+            for i, cid in enumerate(bk.cliques):
+                c = cliques[cid]
+                if c.parent >= 0 and c.separator:
+                    p = cliques[c.parent]
+                    ppos = np.asarray([cpos(p, v) for v in c.separator], dtype=np.int64)
+                    nr = len(c.separator)
+                    ext[i, :nr, :nr] = (blk_base[p.cid] + ppos[:, None] * mb_of[p.cid]
+                                        + ppos[None, :])
+                    extg[i, :nr] = g_base[p.cid] + ppos
+            ext_maps.append((up(ext.reshape(-1)), up(extg.reshape(-1))))
+
+        # ---- per-level clique metadata (for CliqueRec construction) ----
+        levels_meta = []
+        for bk in buckets:
+            clqs = [(c.cid, tuple(int(plan.perm[v]) for v in c.frontal),
+                     tuple(int(plan.perm[v]) for v in c.separator), c.parent)
+                    for c in (cliques[cid] for cid in bk.cliques)]
+            levels_meta.append((bk.nf, bk.ns, len(bk.cliques), clqs))
+
+        return _LocalPlan(
+            fac=plan_fac, msg=plan_msg, eye_rows=up(np.asarray(eye_rows, dtype=np.int64)),
+            eye_vals=up(eye_vals_np, dtype=self.dtype), ext=ext_maps, levels_meta=levels_meta,
+            n_cliques=len(cliques), n_blocks=n_blocks, n_grows=n_grows,
+            lvl_offsets=tuple(lvl_offsets))
+
+    # -- wildfire ---------------------------------------------------------------
+
+    def _wild_round(self, cids: List[int]) -> Dict[int, float]:
+        """Back-substitute one frontier of cliques (parents all solved): one
+        K2 launch per shape class, one device -> host read of the changes."""
+        by_cls: Dict[Tuple[int, int], List[int]] = {}
+        for cid in cids:
+            by_cls.setdefault(self.cliques[cid].cls, []).append(cid)
+        order, changes = [], []
+        for (nf, ns), group in sorted(by_cls.items()):
+            B = len(group)
+            # one upload: pool rows [B], separator gids [B, ns], frontal gids
+            # [B, nf]; padded slots point at x's zero trash row
+            idx = np.full(B * (1 + ns + nf), self.xcap, dtype=np.int64)
+            sep = idx[B : B + B * ns].reshape(B, ns)
+            fro = idx[B + B * ns :].reshape(B, nf)
+            for i, cid in enumerate(group):
+                c = self.cliques[cid]
+                idx[i] = c.row
+                sep[i, : len(c.separator)] = c.separator
+                fro[i, : len(c.frontal)] = c.frontal
+            dev = self._upload(idx)
+            changes.append(_wild(self.pools[(nf, ns)], dev[:B], dev[B : B + B * ns].view(B, ns),
+                                 dev[B + B * ns :].view(B, nf), self.x, nf, ns, self.d))
+            order.extend(group)
+        return dict(zip(order, self._read(torch.cat(changes)).tolist()))
+
+    def _wildfire(self, new_by_level: List[List[int]], threshold: float) -> int:
+        """Frontier descent: new cliques top-down (forced), then into old
+        subtrees while the separator delta keeps changing by > threshold
+        (ISAM2Clique::optimizeWildfireNode semantics)."""
+        dirty: Set[int] = set()
+        new_set = {cid for lv in new_by_level for cid in lv}
+        n_rounds = 0
+        candidates: List[int] = []
+        for lv_cids in reversed(new_by_level):  # top level last in plan order
+            if not lv_cids:
+                continue
+            changes = self._wild_round(lv_cids)
+            n_rounds += 1
+            for cid, chg in changes.items():
+                if chg > threshold:
+                    dirty.update(self.cliques[cid].frontal)
+                for ch in self.cliques[cid].children:
+                    if ch not in new_set:
+                        candidates.append(ch)
+        frontier = [ch for ch in dict.fromkeys(candidates)
+                    if any(v in dirty for v in self.cliques[ch].separator)]
+        while frontier:
+            changes = self._wild_round(frontier)
+            n_rounds += 1
+            for cid, chg in changes.items():
+                if chg > threshold:
+                    dirty.update(self.cliques[cid].frontal)
+            nxt: List[int] = []
+            for cid in frontier:
+                for ch in self.cliques[cid].children:
+                    if any(v in dirty for v in self.cliques[ch].separator):
+                        nxt.append(ch)
+            frontier = nxt
+        return n_rounds
+
+    # -- delta access -------------------------------------------------------------
+
+    def delta_rows(self, gids, dim: int) -> torch.Tensor:
+        """Delta rows [len(gids), dim] of a set of variables."""
+        return self.x[self._upload(gids), :dim]
+
+    def zero_delta_rows(self, gids) -> None:
+        _zero_rows(self.x, self._upload(gids))
+
+    def var_max_delta(self) -> np.ndarray:
+        """max |delta| per gid (relinearization marking; one host read)."""
+        return self._read(_max_abs(self.x[: self.n]))

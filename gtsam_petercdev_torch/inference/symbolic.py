@@ -1,7 +1,8 @@
 """Symbolic elimination planning (host-side, numpy).
 
 Copied from gtsam_petercdev_tpu/inference/symbolic.py (numpy/scipy only),
-without the CCOLAMD ctypes binding.
+without the CCOLAMD ctypes binding: `ccolamd_ordering` is the COLAMD proxy
+its own fallback names.
 
 The reference's inference layer builds, per solve: VariableIndex ->
 fill-reducing Ordering (COLAMD, inference/Ordering.cpp:42) ->
@@ -138,6 +139,18 @@ def degree_ascending_ordering(n: int, edges: np.ndarray) -> np.ndarray:
         np.add.at(deg, edges[:, 0], 1)
         np.add.at(deg, edges[:, 1], 1)
     return np.argsort(deg, kind="stable").astype(np.int64)
+
+
+def ccolamd_ordering(
+    n: int, edges: np.ndarray, cmember: "np.ndarray | None" = None
+) -> np.ndarray:
+    """Constrained COLAMD (inference/Ordering.cpp:55-126), as the JAX
+    package's `ccolamd_ordering` runs it without its vendored CCOLAMD
+    library: the SuperLU COLAMD proxy (`colamd_ordering`). CCOLAMD's source
+    is not in the repository, so the port has only the proxy; `cmember`
+    (constraint groups) is accepted and ignored, as the proxy ignores it —
+    callers that need variables last or first reorder the result."""
+    return colamd_ordering(n, edges)
 
 
 def best_ordering(n: int, edges: np.ndarray) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Synthetic Pose3 graphs with the topology of the sphere benchmark.
+"""Synthetic graphs: Pose3 rings with the topology of the sphere benchmark,
+and a City10000-like Pose2 stream (`city_stream`).
 
 `sphere_rings(n_rings, n_per_ring)` places n_rings x n_per_ring poses on
 latitude rings of a sphere, facing along each ring. Factors:
@@ -82,3 +83,74 @@ def sphere_rings(
         ("BetweenPose3", np.stack([a, b], axis=1), meas, info),
     ]
     return values, factors
+
+
+def pose2_compose_np(a, b):
+    """Pose2 a * b on numpy (x, y, theta)."""
+    c, s = np.cos(a[2]), np.sin(a[2])
+    th = a[2] + b[2]
+    return np.array([a[0] + c * b[0] - s * b[1], a[1] + s * b[0] + c * b[1],
+                     np.arctan2(np.sin(th), np.cos(th))])
+
+
+def pose2_between_np(a, b):
+    """Pose2 a^-1 * b on numpy (x, y, theta)."""
+    c, s = np.cos(a[2]), np.sin(a[2])
+    dx, dy = b[0] - a[0], b[1] - a[1]
+    th = b[2] - a[2]
+    return np.array([c * dx + s * dy, -s * dx + c * dy, np.arctan2(np.sin(th), np.cos(th))])
+
+
+CITY_SIGMAS = (1.0 / 30.0, 1.0 / 30.0, 1.0 / 100.0)  # the City10000 harness's odometry
+
+
+def city_stream(n_poses: int, seed: int = 0, side: int = 48, p_turn: float = 0.3):
+    """A synthetic City10000-like Pose2 stream: a Manhattan-world walk on a
+    unit grid of `side` x `side` cells, from one numpy seed.
+
+    Each step moves one cell along the heading, after turning left or right
+    with probability `p_turn` (never back; forced to turn at the grid's
+    edge). Pose i's odometry line is the true relative pose from pose i - 1,
+    perturbed by N(0, diag(CITY_SIGMAS^2)); whenever the walker reaches a
+    cell it has visited before, a loop-closure line to the most recent
+    earlier pose in that cell follows, perturbed the same way. At the
+    defaults with seed 0, 3,687 poses give 5,714 lines of which 2,028 are
+    loop closures: City10000's density (2,000 loops in the first 5,686
+    lines, 3,687 poses; CITY10000.md).
+
+    Returns (lines, gt): the lines in the City10000 EDGE2 format that
+    `models/city10000.parse_city10000` reads (`EDGE2 keyS 1 keyT 1 1 x y
+    theta`; odometry has keyT = keyS + 1), and the true poses [n_poses, 3],
+    pose 0 at the origin as the harness's prior puts it."""
+    rng = np.random.default_rng(seed)
+    heads = np.array([[1, 0], [0, 1], [-1, 0], [0, -1]])
+    cell = np.array([side // 2, side // 2])
+    h = 0
+    gt = [np.array([float(cell[0]), float(cell[1]), 0.0])]
+    last_at = {tuple(cell): 0}
+    lines = []
+
+    def line(a, b, rel):
+        meas = rel + rng.normal(size=3) * CITY_SIGMAS
+        meas[2] = np.arctan2(np.sin(meas[2]), np.cos(meas[2]))
+        lines.append(f"EDGE2 {a} 1 {b} 1 1 {meas[0]:.9f} {meas[1]:.9f} {meas[2]:.9f}")
+
+    for i in range(1, n_poses):
+        u = rng.random()
+        turn = -1 if u < p_turn / 2 else (1 if u < p_turn else 0)
+        options = [(h + turn) % 4, (h + 1) % 4, (h + 3) % 4]
+        for nh in options:
+            nxt = cell + heads[nh]
+            if 0 <= nxt[0] < side and 0 <= nxt[1] < side:
+                h, cell = nh, nxt
+                break
+        pose = np.array([float(cell[0]), float(cell[1]), np.arctan2(heads[h][1], heads[h][0])])
+        line(i - 1, i, pose2_between_np(gt[-1], pose))
+        gt.append(pose)
+        j = last_at.get(tuple(cell))
+        if j is not None:
+            line(j, i, pose2_between_np(gt[j], pose))
+        last_at[tuple(cell)] = i
+    gt = np.stack(gt)
+    gt[:, :2] -= gt[0, :2]  # the harness starts at the origin
+    return lines, gt

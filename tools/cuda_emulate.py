@@ -23,7 +23,8 @@ extern "C" entry points are then called through ctypes on numpy arrays,
 with the launch plans of the Python wrappers (ops/cholesky_v2.py k1_plan,
 ops/schur_update.py n_tiles), and their outputs held against the plain
 PyTorch versions (inference/kernels.py, ops/cholesky.py) at a set of bucket
-shapes with d = 3, 6, 9 and 16, in float64 and float32 (the sphere root, a
+shapes with d = 3, 6, 9 and 16, in float64 and float32 (the sphere root, the
+iSAM2 path's d = 3 levels, a
 front whose packed F11 exceeds shared memory and the largest front the
 planner forms, whose solve stage exceeds it too, among them); K1 runs each
 shape twice, as planned and with both of its global-memory branches forced
@@ -238,7 +239,10 @@ SHAPES = [(3, 2, 1, 6), (4, 1, 0, 6), (2, 4, 3, 6), (5, 3, 2, 3), (2, 12, 16, 6)
           # K1: the sphere root (19 solve slabs, 45 U tiles), a front whose
           # packed F11 exceeds shared memory in float64, and nf = 32 at d = 16,
           # whose solve stage exceeds it too (both global branches)
-          (1, 32, 96, 6), (1, 30, 8, 9), (1, 32, 8, 16)]
+          (1, 32, 96, 6), (1, 30, 8, 9), (1, 32, 8, 16),
+          # the iSAM2 path at d = 3: a leaf level, a mid-tree level, K4's
+          # largest front that fits shared memory and K1's past it
+          (37, 1, 2, 3), (3, 4, 8, 3), (1, 32, 64, 3), (1, 32, 128, 3)]
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
 
