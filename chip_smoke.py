@@ -8,6 +8,9 @@
                                           after a kernel edit)
     python3 chip_smoke.py --isam2-only    phases 1-2, the iSAM2 path's d = 3 shapes
                                           of phase 3, then phase 6; no result line
+    python3 chip_smoke.py --smart-only    phases 1-2, then phase 7; no result line
+    python3 chip_smoke.py --optimizers-only  phases 1-2, the sphere's plans, then
+                                          phase 8; no result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -44,12 +47,16 @@ a result line:
              solver="multifrontal" and solver="schur", float32 and float64,
              counters reset just before and read just after; the first damped
              multifrontal step against the Schur solver's; a small rig against
-             the CPU path; LM iterations per second by bench.py's protocol
+             the CPU path; LM iterations per second by bench.py's protocol;
+             at the shape of tests/data/ba_synth_lm_reference.json
+             (tools/ba_reference.py), the f32 and f64 LM histories beside the
+             JAX package's and the port's CPU f32 (gate: f64 = JAX's, rel 1e-8)
   6. iSAM2   float64, through run_city10000 / ISAM2.update on a synthetic
              City10000-like stream (utils/synthetic.city_stream): a) its
              first 150 lines on the card and on the CPU path, final
-             estimates within rel 1e-9 and identical Bayes-tree counters
-             update by update (wildfire rounds reported: see run_isam2);
+             estimates within rel 1e-9, identical Bayes-tree counters and
+             wildfire rounds update by update, and a second card run's
+             estimates bitwise equal to the first's;
              b) the reference contract (no relinearization, wildfire 0, 60
              poses: the delta after every 6th update = the dense solve,
              atol 1e-9); c) CITY_LINES lines at City10000's parameters,
@@ -60,13 +67,37 @@ a result line:
              stream's ground truth, the final error beside a batch GN of the
              final graph from the iSAM2 estimate; gates: finite errors, no
              bad pivots, K2 and K4 launched
-  7. result  a `kernels` JSON line, the card line, then the last line
+  7. smart   smart-factor BA through smart_levenberg_marquardt (dense
+             library algebra, no bucket kernel, as in the JAX package): a
+             ragged 20-camera / 500-track rig with a behind-camera and a
+             single-view track, card = CPU path (LM history rel 1e-9, equal
+             VALID tracks at every entry), and on it the HESSIAN solve =
+             smart_pcg (rel 1e-6) and JACOBIAN_Q / SVD's A^T A, A^T b = H, g
+             (rel 1e-9); then the BA cell's scene (ba_synth.smart_scene:
+             1000 cameras, 50,000 tracks of 4 views) in f64 and f32, 4 LM
+             iterations beside tests/data/smart_ba_reference.json
+             (tools/smart_reference.py; gates: finite, the f64 error falls,
+             the start's VALID tracks = the JAX package's), LM iterations
+             per second, one iteration's device time and launches, peak
+             memory, and the linearization-mode checks on the first
+             linearization, reported
+  8. optimizers  on the sphere: Gauss-Newton f64 to convergence; mixed-
+             precision GN (f32 through K1-K4 on the card, f64 residual and
+             retract on the host) reaching it (<= rel 1e-9 above), with ms
+             and kernel launches per iteration; dogleg and LM on PCG within
+             rel 1e-8 of it; the first PCG step = the multifrontal step (rel
+             1e-6); factor / apply = solve (rel 1e-10) and the log-determinant
+             = slogdet (rel 1e-10); NCG's error falls in 50 iterations on a
+             20-pose graph
+  9. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
 and in a directory that holds no gtsam_petercdev_torch package.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -113,11 +144,24 @@ FACTOR_KEYS = ("L", "Linv", "W", "y", "U", "ug")
 CITY_POSES = 3687
 CITY_LINES = 1500
 CITY_GATE_LINES = 150
+# where the card's wildfire descent and the CPU's part, the change one of
+# them saw must be below this (a rounding-size change, against poses of
+# size 1-100): see phase 6 gate a)
+ROUNDING_CHANGE = 1e-12
 CONTRACT_POSES = 60
 PROFILE_UPDATES = 50
 # the d = 3 bucket shapes of that run's level steps and wildfire rounds, as
 # tools/bench_bucket_shapes.py wrote them
 ISAM2_SHAPES = "tests/data/isam2_bucket_shapes.json"
+# phase 5: LM histories of the JAX package (f32, f64) and of the port's CPU
+# path (f32) at a fifth of the BA cell, from tools/ba_reference.py
+BA_REF = "tests/data/ba_synth_lm_reference.json"
+# phase 7: the JAX package's smart-factor LM on the BA cell's scene, from
+# tools/smart_reference.py; the small rig (cameras, tracks) of the
+# card-vs-CPU gate; the camera priors' sigma (as the reference tool)
+SMART_REF = "tests/data/smart_ba_reference.json"
+SMART_RIG = (20, 500)
+SMART_PRIOR_SIGMA = 1e-4
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
@@ -501,10 +545,47 @@ def time_step(torch, v1, label, unit, step, graph, values, n_chain):
     return ms, per_step
 
 
+def finite_json(obj):
+    """obj with every non-finite float as None (the result line is strict
+    JSON) and every dict key a string."""
+    if isinstance(obj, float):
+        return obj if obj == obj and abs(obj) != float("inf") else None
+    if isinstance(obj, dict):
+        return {str(k): finite_json(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [finite_json(v) for v in obj]
+    return obj
+
+
 def check_result(res, what):
     hist = res.error_history
     if not (res.error < hist[0] and all(e == e and abs(e) != float("inf") for e in hist)):
         raise AssertionError(f"{what}: error did not fall or is not finite: {hist}")
+
+
+@contextlib.contextmanager
+def plain_kernels(names):
+    """Within the block, the bucket wrappers `names` (keys of KERNELS) run
+    their plain PyTorch versions on the card's tensors: the control that
+    tells a kernel's rounding from the problem's conditioning."""
+    from gtsam_petercdev_torch.inference import kernels
+    from gtsam_petercdev_torch.ops import cholesky, cholesky_v2
+
+    plain = {"partial_cholesky": (cholesky_v2, "partial_cholesky", kernels.partial_cholesky),
+             "backsolve_bucket": (cholesky_v2, "backsolve_bucket", cholesky_v2.backsolve_plain),
+             "partial_cholesky_smem": (cholesky, "partial_cholesky",
+                                       cholesky.partial_cholesky_plain),
+             "partial_cholesky_blocks": (cholesky, "partial_cholesky_blocks",
+                                         cholesky.partial_cholesky_blocks_plain)}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in (plain[n] for n in names)]
+    for n in names:
+        mod, attr, fn = plain[n]
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def routing(elimination, maps, itemsize):
@@ -541,6 +622,53 @@ def write_stream(here, lines, n):
     return path
 
 
+class WildfireRecorder:
+    """Every wildfire round's per-clique changes, by update: `updates` is
+    [[{clique id: change}, ...] per update] while the context is open."""
+
+    def __enter__(self):
+        from gtsam_petercdev_torch.inference import incremental
+
+        E = self.E = incremental.IncrementalEngine
+        self.saved = (E._wildfire, E._wild_round)
+        self.updates = []
+        wildfire, wild_round = self.saved
+
+        def recorded_wildfire(eng, *a, **k):
+            self.updates.append([])
+            return wildfire(eng, *a, **k)
+
+        def recorded_round(eng, cids):
+            out = wild_round(eng, cids)
+            self.updates[-1].append(dict(out))
+            return out
+
+        E._wildfire, E._wild_round = recorded_wildfire, recorded_round
+        return self
+
+    def __exit__(self, *exc):
+        self.E._wildfire, self.E._wild_round = self.saved
+
+    @staticmethod
+    def divergences(a, b):
+        """For each update whose descents differ: (update, round, [(clique,
+        change in a, change in b)]) of its first round whose cliques, or
+        whose cliques with a change > 0, differ (None: not in that round)."""
+        out = []
+        for u, (ra, rb) in enumerate(zip(a, b)):
+            for k, (ca, cb) in enumerate(zip(ra, rb)):
+                pa = {c for c, v in ca.items() if v > 0}
+                pb = {c for c, v in cb.items() if v > 0}
+                if ca.keys() != cb.keys() or pa != pb:
+                    odd = sorted((ca.keys() ^ cb.keys()) | (pa ^ pb))
+                    out.append((u, k, [(c, ca.get(c), cb.get(c)) for c in odd]))
+                    break
+            else:
+                if len(ra) != len(rb):
+                    out.append((u, min(len(ra), len(rb)), []))
+        return out
+
+
 class LayerTimer:
     """Host wall time of an iSAM2 update by layer, each layer's call
     wrapped in torch.cuda.synchronize() on both sides so its device work is
@@ -548,8 +676,12 @@ class LayerTimer:
     relinearization scan, the host plan (cache misses), the pool scatters,
     the level steps (K4 / K1 and the extend-add), the payload writes, the
     wildfire rounds (gathers, K2, one read each), the whole update; the
-    rest of the update is host bookkeeping. The layers are wrapped between
-    start() and stop() only."""
+    rest of the update is host bookkeeping. Inside the host plan, the time
+    spent splitting the pool sums into rounds of unique destinations
+    (`_plan_rounds`, host clock, no synchronize) is reported on its own, and
+    the pool sums are counted: calls, rounds (an `index_add_` each) and
+    gathers (an `index_select` each, for rounds that take a subset of their
+    source). The layers are wrapped between start() and stop() only."""
 
     def __init__(self, torch):
         from gtsam_petercdev_torch.inference import incremental
@@ -566,6 +698,8 @@ class LayerTimer:
             ("wildfire rounds", E, "_wildfire"), ("update", I, "update")]
         self.ms = {}
         self.saved = []
+        self.sums = dict(calls=0, rounds=0, gathers=0)
+        self.incremental = incremental
 
     def _wrap(self, name, fn):
         sync = self.torch.cuda.synchronize
@@ -585,6 +719,24 @@ class LayerTimer:
             fn = owner.__dict__[attr]
             self.saved.append((owner, attr, fn))
             setattr(owner, attr, self._wrap(name, fn))
+        inc = self.incremental
+        plan_rounds, add_rounds = inc._plan_rounds, inc._add_rounds
+
+        def planned(*a):
+            t0 = time.perf_counter()
+            out = plan_rounds(*a)
+            self.ms["rounds planning"] = (self.ms.get("rounds planning", 0.0)
+                                          + (time.perf_counter() - t0) * 1e3)
+            return out
+
+        def added(dst, plan, src):
+            self.sums["calls"] += 1
+            self.sums["rounds"] += len(plan.rounds)
+            self.sums["gathers"] += sum(pos is not None for pos, _ in plan.rounds)
+            return add_rounds(dst, plan, src)
+
+        self.saved += [(inc, "_plan_rounds", plan_rounds), (inc, "_add_rounds", add_rounds)]
+        inc._plan_rounds, inc._add_rounds = planned, added
 
     def stop(self):
         for owner, attr, fn in self.saved:
@@ -593,7 +745,9 @@ class LayerTimer:
 
     def report(self, n_updates):
         out = {k: v / n_updates for k, v in self.ms.items()}
-        out["other host"] = out["update"] - sum(v for k, v in out.items() if k != "update")
+        out["other host"] = out["update"] - sum(
+            v for k, v in out.items() if k not in ("update", "rounds planning"))
+        out.update({f"pool sum {k} per update": v / n_updates for k, v in self.sums.items()})
         return out
 
 
@@ -616,32 +770,66 @@ def run_isam2(torch, here, v1):
     counters = ("n_relinearized", "n_new_factors", "n_affected_cliques", "n_orphans",
                 "n_reeliminated", "n_cliques")
 
-    # a) the card against the CPU path on the stream's first lines
+    # a) the card against the CPU path on the stream's first lines, each
+    # wildfire round's changes recorded (update, round, {clique: change})
     path = write_stream(here, lines, CITY_GATE_LINES)
     t0 = time.perf_counter()
-    runs = {dev: run_city10000(path, device=dev) for dev in ("cuda", "cpu")}
+    runs, changes = {}, {}
+    for dev in ("cuda", "cpu"):
+        with WildfireRecorder() as rec:
+            runs[dev] = run_city10000(path, device=dev)
+        changes[dev] = rec.updates
     a, b = runs["cuda"].estimate, runs["cpu"].estimate
     rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
     ups = list(zip(runs["cuda"].updates, runs["cpu"].updates))
     diff = [(i, k, getattr(u, k), getattr(v, k)) for i, (u, v) in enumerate(ups)
             for k in counters if getattr(u, k) != getattr(v, k)]
-    # wildfire 0.0 descends while a clique's change is > 0: where the exact
-    # answer is "no change", rounding in another order (the card's index_add_
-    # sums) can leave 1e-17 and one more round; reported, not gated
+    # wildfire 0.0 descends while a clique's change is > 0, so a descent ends
+    # where the propagated change rounds to nothing: a question of ulps that
+    # the card's kernels (FMA, their own order of sums) and the CPU's plain
+    # versions answer each their own way, however the pool sums are ordered.
+    # Gated: the descents part only over such a change; each device answers
+    # the same way every time (the second run below)
     rounds = [(i, u.wildfire_rounds, v.wildfire_rounds) for i, (u, v) in enumerate(ups)
               if u.wildfire_rounds != v.wildfire_rounds]
+    div = WildfireRecorder.divergences(changes["cuda"], changes["cpu"])
+    # where two descents part, they part over a change of rounding size: a
+    # clique that one device moved by at most ROUNDING_CHANGE and the other
+    # not at all, in a round both devices reached with the same cliques
+    parted = [c for _, _, odd in div for c in odd]
+    part_max = max((abs(x) for _, x, y in parted for x in (x, y) if x is not None), default=0.0)
+    rounding_only = all(odd and all(x is not None and y is not None for _, x, y in odd)
+                        for _, _, odd in div) and part_max <= ROUNDING_CHANGE
     bad = [sum(int(u.bad_pivots) for u in r.updates) for r in runs.values()]
     log(f"iSAM2 gate a) {CITY_GATE_LINES} lines, card vs CPU: estimates rel {rel:.3e}; per-update "
         f"tree counters {counters} identical in {len(ups) - len({d[0] for d in diff})} of "
         f"{len(ups)} updates (differences (update, counter, card, CPU): {diff[:8]}); wildfire "
         f"rounds differ in {len(rounds)} updates {rounds[:8]} (card "
         f"{sum(u.wildfire_rounds for u, _ in ups)}, CPU {sum(v.wildfire_rounds for _, v in ups)} "
-        f"in all); bad pivots (card, CPU) {bad}; "
+        f"in all); the descents part in {len(div)} updates, at (update counted from 0 = the "
+        f"prior's, round, [(clique, card change, CPU change)]) {div[:4]}; largest change where "
+        f"they part {part_max:.3e} (gate <= {ROUNDING_CHANGE:g}); "
+        f"bad pivots (card, CPU) {bad}; "
         f"{runs['cuda'].n_poses} poses {runs['cuda'].n_loop_closures} loops "
         f"({time.perf_counter() - t0:.1f} s)")
-    if not (rel <= 1e-9 and not diff and bad == [0, 0]):
+    if not (rel <= 1e-9 and not diff and bad == [0, 0] and rounding_only):
         raise AssertionError("iSAM2: the card and the CPU path disagree")
-    del runs
+    # the same lines on the card again: bit for bit the same run
+    with WildfireRecorder() as rec:
+        again = run_city10000(path, device="cuda")
+    same = bool(np.array_equal(again.estimate, runs["cuda"].estimate)) and [
+        u.wildfire_rounds for u in again.updates] == [u.wildfire_rounds for u, _ in ups] \
+        and rec.updates == changes["cuda"]
+    log(f"iSAM2 gate a) a second card run of the {CITY_GATE_LINES} lines: estimates bitwise "
+        f"equal, the same wildfire rounds and the same change of every clique in every round: "
+        f"{same}")
+    if not same:
+        raise AssertionError("iSAM2: two card runs of the same lines differ")
+    a_out = dict(estimate_rel=rel, rounds_card=sum(u.wildfire_rounds for u, _ in ups),
+                 rounds_cpu=sum(v.wildfire_rounds for _, v in ups), rounds_differ=rounds,
+                 divergences=div, largest_change_where_they_part=part_max,
+                 card_repeats_bitwise=same)
+    del runs, again, changes
 
     # b) the reference contract (tests/test_isam2.py:102-146) on the card:
     # no relinearization, wildfire 0; after every 6th update the delta is
@@ -753,7 +941,7 @@ def run_isam2(torch, here, v1):
         window_cuda_launches_per_update=n_kern / PROFILE_UPDATES,
         reads_per_update=reads, reelim_mean=float(np.mean(reelim)), reelim_max=int(max(reelim)),
         peak_mib=peak, ate_rmse=ate, error=err, batch_gn_error=gn.error,
-        batch_gn_history=gn.error_history, bad_pivots=bad)
+        batch_gn_history=gn.error_history, bad_pivots=bad, gate_a=a_out)
     log(f"iSAM2 run c) {n_up} lines ({res.n_poses} poses, {res.n_loop_closures} loop closures) in "
         f"{wall:.1f} s: per-update ms mean {st.mean():.3f} p50 {out['step_ms']['p50']:.3f} p90 "
         f"{out['step_ms']['p90']:.3f} p99 {out['step_ms']['p99']:.3f} max {st.max():.3f}")
@@ -763,7 +951,9 @@ def run_isam2(torch, here, v1):
     log(f"iSAM2 run c) by layer, {PROFILE_UPDATES} updates from update {split} (synchronized "
         f"timers; ms per update, share of the update): "
         + "; ".join(f"{k} {v:.3f} ({100.0 * v / layers['update']:.1f}%)"
-                    for k, v in layers.items()))
+                    for k, v in layers.items() if not k.startswith("pool sum"))
+        + "; rounds planning is inside the host plan; pool sums per update: "
+        + ", ".join(f"{k[9:-11]} {v:.1f}" for k, v in layers.items() if k.startswith("pool sum")))
     log(f"iSAM2 run c) profiled window of {PROFILE_UPDATES} updates (from update {first}): "
         f"{window['ms']:.1f} ms wall (profiler on), device busy {busy:.3f} ms = "
         f"{100.0 * busy / window['ms']:.2f}%, {n_kern} kernel launches = "
@@ -785,6 +975,374 @@ def run_isam2(torch, here, v1):
     return out
 
 
+# --- phase 7: smart-factor bundle adjustment --------------------------------------------
+
+
+class ValidRecorder:
+    """Each error evaluation of `smart_levenberg_marquardt` as (error, VALID
+    tracks): `smart.total_error` and the graph's `error` are wrapped (one
+    device read each), so every entry of an error history finds the
+    evaluation it came from. For the gate runs only, never a timed one."""
+
+    def __init__(self, smart, graph):
+        self.smart, self.graph, self.evals = smart, graph, []
+        self._pending = None
+
+    def __enter__(self):
+        smart, orig = self.smart, self.smart.total_error
+        graph_error = self.graph.error
+
+        def total_error(batch, poses):
+            _, _, b, valid = smart._track_terms(batch, poses)
+            e = 0.5 * (b * valid.to(b.dtype)[:, None, None]).pow(2).sum()
+            self._pending = (e, int(valid.sum()))
+            return e
+
+        def error(values):
+            eg = graph_error(values)
+            es, n = self._pending
+            self.evals.append((float(es + eg), n))
+            return eg
+
+        self._saved = orig
+        smart.total_error, self.graph.error = total_error, error
+        return self
+
+    def __exit__(self, *exc):
+        self.smart.total_error = self._saved
+        del self.graph.error
+
+    def valid_for(self, history):
+        """VALID tracks at each history entry (NaN matches NaN)."""
+        out, k = [], 0
+        for h in history:
+            while not (self.evals[k][0] == h or (h != h and self.evals[k][0] != self.evals[k][0])):
+                k += 1
+            out.append(self.evals[k][1])
+        return out
+
+
+def smart_problem(torch, scene, mask, dtype, device):
+    """(graph with the two camera priors, initial Values, smart batch) of a
+    `ba_synth.smart_scene` / `smart_rig` dict on `device` in `dtype`."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.geometry.pose3 import Pose3
+    from gtsam_petercdev_torch.linear import noise
+    from gtsam_petercdev_torch.models import ba_synth
+    from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
+    from gtsam_petercdev_torch.nonlinear.values import Values
+    from gtsam_petercdev_torch.slam.factors import prior_factor
+    from gtsam_petercdev_torch.device import resolve_device
+    from gtsam_petercdev_torch.utils import convert
+
+    batch = convert.smart_batch_from_arrays(scene["cam_rows"], mask, scene["measured"],
+                                            np.array([ba_synth.SMART_CAL]), device=device,
+                                            dtype=dtype)
+    t = lambda a: torch.as_tensor(a).to(resolve_device(device), dtype)
+    values = Values(device=device, dtype=dtype)
+    values.insert_batch(np.arange(len(scene["R0"])), "Pose3", Pose3(t(scene["R0"]), t(scene["t0"])))
+    graph = NonlinearFactorGraph(device=device, dtype=dtype)
+    for i in (0, 1):
+        graph.add(prior_factor("Pose3"), [i], Pose3(t(scene["R"][i]), t(scene["t"][i])),
+                  noise.isotropic(6, SMART_PRIOR_SIGMA, np.float64))
+    return graph, values, batch
+
+
+def camera_system_checks(torch, smart, batch, poses, n_cams, pcg_runs):
+    """On one linearization: for each (lambda, max iterations) of pcg_runs,
+    the HESSIAN-mode damped solve against smart_pcg (rel) and smart_pcg's
+    device->host reads; JACOBIAN_Q / JACOBIAN_SVD's A^T A and A^T b against
+    H and g (rel to max |H|, max |g|)."""
+    from gtsam_petercdev_torch.linear import solve as linsolve
+
+    H, g, _ = smart.assemble_camera_system(batch, poses, n_cams)
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    out = {"pcg": []}
+    for lam, max_iters in pcg_runs:
+        xh = torch.linalg.solve(H + lam * eye, g)
+        reads = [0]
+        orig = linsolve._cg_continues
+
+        def counted(*a):
+            reads[0] += 1
+            return orig(*a)
+
+        linsolve._cg_continues = counted
+        try:
+            xp = smart.smart_pcg(batch, poses, n_cams, lam=lam, max_iters=max_iters).reshape(-1)
+        finally:
+            linsolve._cg_continues = orig
+        out["pcg"].append(dict(lam=lam, max_iters=max_iters, reads=reads[0],
+                               rel=((xp - xh).norm() / xh.norm()).item()))
+    T = batch.n_tracks
+    cols = (batch.rows_dev[:, :, None] * 6 + torch.arange(6, device=H.device)).reshape(T, -1)
+    for mode in ("jacobian_q_factors", "jacobian_svd_factors"):
+        A, b = getattr(smart, mode)(batch, poses)
+        Af = A.reshape(T, A.shape[1], -1)
+        AtA = torch.einsum("tri,trj->tij", Af, Af)
+        Hq, gq = torch.zeros_like(H), torch.zeros_like(g)
+        Hq.index_put_((cols[:, :, None].expand(AtA.shape), cols[:, None, :].expand(AtA.shape)),
+                      AtA, accumulate=True)
+        gq.index_put_((cols,), torch.einsum("tri,tr->ti", Af, b), accumulate=True)
+        out[mode] = (((Hq - H).abs().max() / H.abs().max()).item(),
+                     ((gq - g).abs().max() / g.abs().max()).item())
+    return out
+
+
+def start_sensitivity(torch, smart, batch, poses):
+    """How much the start's error moves when every camera centre is scaled
+    by (1 + 1e-15), a change of one or two ulps: its relative change, and
+    the tracks whose whitened residual moves by more than 1e-6 of its size
+    (a triangulation on a knife edge). An error history can agree with
+    another implementation's no closer than this."""
+    from gtsam_petercdev_torch.geometry.pose3 import Pose3
+
+    _, _, b0, v0 = smart._track_terms(batch, poses)
+    _, _, b1, v1 = smart._track_terms(batch, Pose3(poses.R, poses.t * (1 + 1e-15)))
+    e = lambda b, v: 0.5 * (b * v.to(b.dtype)[:, None, None]).pow(2).sum()
+    e0, e1 = e(b0, v0), e(b1, v1)
+    n0 = b0.flatten(1).norm(dim=1)
+    moved = ((b1 - b0).flatten(1).norm(dim=1) > 1e-6 * n0) | (v0 != v1)
+    return dict(error_rel=((e1 - e0).abs() / e0).item(), tracks_moved=int(moved.sum()),
+                valid=int(v0.sum()), valid_moved=int(v1.sum()))
+
+
+def run_smart(torch, here):
+    """Phase 7: smart-factor BA through `smart_levenberg_marquardt`."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.linear import solve as linsolve
+    from gtsam_petercdev_torch.models import ba_synth
+    from gtsam_petercdev_torch.nonlinear.optimizers import LMParams
+    from gtsam_petercdev_torch.slam import smart
+
+    with open(os.path.join(here, SMART_REF)) as f:
+        ref = json.load(f)
+    iters = ref["iterations"]
+    out = {}
+
+    # a) the small ragged rig: card = CPU path, history and VALID tracks
+    rig = ba_synth.smart_rig(*SMART_RIG, seed=SEED)
+    hist, valid = {}, {}
+    for dev in ("cuda", "cpu"):
+        graph, values, batch = smart_problem(torch, rig, rig["mask"], torch.float64, dev)
+        with ValidRecorder(smart, graph) as rec:
+            r = smart.smart_levenberg_marquardt(graph, batch, values, LMParams(max_iterations=10),
+                                                device=dev)
+        hist[dev], valid[dev] = r.error_history, rec.valid_for(r.error_history)
+        if dev == "cuda":
+            poses = smart.gather_poses(batch, values.params("Pose3"))
+            rig_checks = camera_system_checks(torch, smart, batch, poses, SMART_RIG[0],
+                                              [(1.0, 200)])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist["cuda"], hist["cpu"]))
+    log(f"smart rig ({SMART_RIG[0]} cameras, {SMART_RIG[1]} tracks of 2-6 views + a behind-camera "
+        f"and a single-view track), f64 LM card vs CPU: history rel {rel:.3e} "
+        f"({len(hist['cuda'])} / {len(hist['cpu'])} entries), VALID tracks card {valid['cuda']} "
+        f"CPU {valid['cpu']}; first linearization on the card: HESSIAN vs smart_pcg "
+        f"{rig_checks['pcg']}, A^T A / A^T b vs H / g: "
+        f"Q {rig_checks['jacobian_q_factors']}, SVD {rig_checks['jacobian_svd_factors']}")
+    if not (len(hist["cuda"]) == len(hist["cpu"]) and rel <= 1e-9
+            and valid["cuda"] == valid["cpu"] and valid["cuda"][0] == SMART_RIG[1]):
+        raise AssertionError("smart rig: the card and the CPU path disagree")
+    if not (rig_checks["pcg"][0]["rel"] <= 1e-6 and max(rig_checks["jacobian_q_factors"]) <= 1e-9
+            and max(rig_checks["jacobian_svd_factors"]) <= 1e-9):
+        raise AssertionError(f"smart rig: the linearization modes disagree: {rig_checks}")
+    out["rig"] = dict(history_rel=rel, valid=valid["cuda"], **rig_checks)
+
+    # b) the BA cell's scene in smart-factor form, float64 and float32
+    data = ba_synth.make_synthetic_ba(*ref["shape"], seed=ref["seed"], dtype=np.float64)
+    scene = ba_synth.smart_scene(data, seed=ref["scene_seed"])
+    n_cams = len(scene["R"])
+    mask = np.ones(scene["cam_rows"].shape, bool)
+    for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+        graph, values, batch = smart_problem(torch, scene, mask, dtype, "cuda")
+        params = LMParams(max_iterations=iters)
+        with ValidRecorder(smart, graph) as rec:
+            r = smart.smart_levenberg_marquardt(graph, batch, values, params, device="cuda")
+        n_valid = rec.valid_for(r.error_history)
+        jref = ref["runs"][f"jax_{name}"]
+        m = min(len(r.error_history), len(jref["error_history"]))
+        dist = [abs(a - b) / abs(b) if b == b else None
+                for a, b in zip(r.error_history[:m], jref["error_history"][:m])]
+        # the timed run: the same LM, no recorder
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r2 = smart.smart_levenberg_marquardt(graph, batch, values, params, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def step(v, graph=graph, batch=batch):  # one linearization and damped solve
+            H, g, _ = smart.assemble_camera_system(batch, smart.gather_poses(batch, v.params("Pose3")),
+                                                   n_cams)
+            H2, g2 = linsolve.assemble_dense(graph.linearize(v))
+            x = linsolve.dense_solve(H + H2, g + g2, 1e-5)
+            return v.retract({"Pose3": x.reshape(n_cams, 6)})
+
+        prof = profile_step(torch, step, values, top=6)
+        busy, n_launch = (prof[0], prof[1]) if prof else (None, None)
+        step_ms, _ = chained_ms(torch, lambda v: (step(v), v)[1], values, 4)
+        err_ms, _ = chained_ms(torch, lambda v: (smart.total_error(
+            batch, smart.gather_poses(batch, v.params("Pose3"))), v)[1], values, 4)
+        res = dict(history=r.error_history, valid=n_valid, jax_history=jref["error_history"],
+                   jax_valid=jref["valid_tracks"], rel_to_jax=dist, iterations=r.iterations,
+                   timed_run_history=r2.error_history,
+                   iters_per_s=r2.iterations / wall, wall_s=wall, peak_gib=peak,
+                   step_ms=step_ms, step_busy_ms=busy, step_launches=n_launch,
+                   error_eval_ms=err_ms)
+        log(f"smart BA {name} ({n_cams} cameras, {batch.n_tracks} tracks): LM history "
+            f"{['%.9e' % e for e in r.error_history]}, VALID tracks {n_valid}; JAX package (CPU) "
+            f"{['%.9e' % e for e in jref['error_history']]}, VALID {jref['valid_tracks']}; rel "
+            f"{dist}; timed run (no recorder) {['%.9e' % e for e in r2.error_history]}: "
+            f"{r2.iterations} iterations in {wall:.3f} s = {r2.iterations / wall:.3f} LM "
+            f"iterations/s, peak device memory {peak:.2f} GiB; one linearization and damped "
+            f"solve (assemble, dense Cholesky, retract) {step_ms:.3f} ms chained, device busy "
+            f"{busy if busy is None else round(busy, 3)} ms, {n_launch} kernel launches; one "
+            f"error evaluation (triangulation included) {err_ms:.3f} ms")
+        if prof:
+            log(f"smart BA {name} step, top kernels by device time: "
+                + "; ".join(f"{kms:.3f} ms {calls}x {key[:70]}" for key, kms, calls in prof[2]))
+            res["step_top_kernels"] = [(key[:70], kms, calls) for key, kms, calls in prof[2]]
+        if not all(e == e and abs(e) != float("inf") for e in r.error_history):
+            raise AssertionError(f"smart BA {name}: the error history is not finite")
+        if name == "float64":
+            poses = smart.gather_poses(batch, values.params("Pose3"))
+            sens = res["start_sensitivity"] = start_sensitivity(torch, smart, batch, poses)
+            log(f"smart BA float64 start: the camera centres scaled by (1 + 1e-15) move the "
+                f"start's error by rel {sens['error_rel']:.3e}; tracks whose whitened residual "
+                f"moves by more than 1e-6 of its size {sens['tracks_moved']} of "
+                f"{batch.n_tracks} (VALID {sens['valid']} -> {sens['valid_moved']}); the start "
+                f"vs the JAX package's rel {dist[0]:.3e} (gate <= 10x the former)")
+            # the history beyond the start is reported: it can agree with
+            # the JAX package's no closer than the start's sensitivity
+            if not (r.error < r.error_history[0] and n_valid[0] == jref["valid_tracks"][0]
+                    and dist[0] <= 10 * sens["error_rel"]):
+                raise AssertionError("smart BA float64: the error did not fall, or the start "
+                                     "(error, VALID tracks) differs from the JAX package's")
+            res["first_step"] = camera_system_checks(torch, smart, batch, poses, n_cams,
+                                                     [(1e-5, 200), (1.0, 200), (1.0, 5000)])
+            log(f"smart BA float64 first linearization: {res['first_step']}")
+        out[name] = res
+    return out
+
+
+# --- phase 8: the remaining batch optimizers -----------------------------------------------
+
+
+def run_optimizers(torch, v1, fa, va, g64, v64, g32, opt_maps, lg0):
+    """Phase 8 on the sphere: mixed-precision GN (float32 through K1-K4 on
+    the card, float64 residual and retract on the host), dogleg, LM on PCG,
+    factor / apply and the log-determinant; NCG on a small graph."""
+    from gtsam_petercdev_torch.inference import elimination
+    from gtsam_petercdev_torch.linear import solve as linsolve
+    from gtsam_petercdev_torch.nonlinear.optimizers import (
+        DoglegParams, LMParams, OptimizerParams, dogleg, gauss_newton,
+        gauss_newton_mixed_precision, levenberg_marquardt, nonlinear_conjugate_gradient)
+    from gtsam_petercdev_torch.utils import convert, synthetic
+
+    out = {}
+    t0 = time.perf_counter()
+    gn = gauss_newton(g64, v64, OptimizerParams(solver="multifrontal", max_iterations=20),
+                      device="cuda")
+    torch.cuda.synchronize()
+    log(f"GN f64 to convergence: {['%.9e' % e for e in gn.error_history]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check_result(gn, "GN f64")
+
+    gh = convert.graph_from_arrays(fa, device="cpu")
+    vh = convert.values_from_arrays(va, device="cpu")
+    gauss_newton_mixed_precision(g32, gh, vh, OptimizerParams(max_iterations=1), device="cuda")
+    # each call plans its elimination on the host once: timed apart
+    plan_s = [0.0]
+    saved = [(name, getattr(elimination, name))
+             for name in ("build_plan_for_graph", "build_numeric_maps")]
+
+    def host_timed(fn):
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            plan_s[0] += time.perf_counter() - t
+            return out
+        return timed
+
+    for name, fn in saved:
+        setattr(elimination, name, host_timed(fn))
+    v1.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        mx = gauss_newton_mixed_precision(g32, gh, vh, OptimizerParams(max_iterations=20),
+                                          device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved:
+            setattr(elimination, name, fn)
+    wall = time.perf_counter() - t0 - plan_s[0]
+    launches, cuda_launches = v1.launch_counts(), v1.cuda_launch_counts()
+    per_it = {k: n / mx.iterations for k, n in launches.items()}
+    out["mixed"] = dict(history=mx.error_history, iterations=mx.iterations,
+                        ms_per_iter=wall * 1e3 / mx.iterations, launches=launches,
+                        cuda_launches=cuda_launches,
+                        launches_per_iter=per_it, gn_f64_error=gn.error)
+    out["mixed"]["plan_s"] = plan_s[0]
+    log(f"mixed-precision GN (f32 on the card, f64 host): {['%.9e' % e for e in mx.error_history]}; "
+        f"{mx.iterations} iterations, {wall * 1e3 / mx.iterations:.3f} ms per iteration "
+        f"(host planning {plan_s[0]:.2f} s apart); launches {launches} = {per_it} per "
+        f"iteration; final vs GN f64 rel {(mx.error - gn.error) / gn.error:.3e}")
+    if not (mx.error <= gn.error * (1 + 1e-9) and mx.values.dtype == torch.float64
+            and all(n > 0 for n in launches.values())):
+        raise AssertionError("mixed-precision GN missed the f64 optimum or a kernel was not "
+                             f"launched: {mx.error} vs {gn.error}, {launches}")
+
+    t0 = time.perf_counter()
+    dl = dogleg(g64, v64, DoglegParams(max_iterations=20), device="cuda")
+    t_dl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp = levenberg_marquardt(g64, v64, LMParams(solver="pcg", max_iterations=20), device="cuda")
+    t_lp = time.perf_counter() - t0
+    rel_dl = abs(dl.error - gn.error) / gn.error
+    rel_lp = abs(lp.error - gn.error) / gn.error
+    dp = linsolve.pcg_solve(lg0, 1e-5, tol=1e-10, max_iters=1000)
+    dm, _ = elimination.solve_linearized(g64, v64, 1e-5, cache={"mf_lg": lg0})
+    rel_step = ((dp["Pose3"] - dm["Pose3"]).norm() / dm["Pose3"].norm()).item()
+    log(f"dogleg: {['%.9e' % e for e in dl.error_history]} ({t_dl:.1f} s), vs GN rel {rel_dl:.3e}; "
+        f"LM on PCG: {['%.9e' % e for e in lp.error_history]} ({t_lp:.1f} s), vs GN rel "
+        f"{rel_lp:.3e}; first step (lambda 1e-5) PCG vs multifrontal rel {rel_step:.3e}")
+    if not (rel_dl <= 1e-8 and rel_lp <= 1e-8 and rel_step <= 1e-6):
+        raise AssertionError("dogleg / PCG LM disagree with GN")
+    out.update(dogleg=dict(history=dl.error_history, rel_to_gn=rel_dl, s=t_dl),
+               lm_pcg=dict(history=lp.error_history, rel_to_gn=rel_lp, s=t_lp),
+               pcg_first_step_rel=rel_step)
+
+    # factor once, apply to J^T b: the solve's delta; log det against slogdet
+    Ab = tuple((lb.A, lb.b) for lb in lg0.batches)
+    x, stats = elimination.multifrontal_solve(opt_maps, Ab, 0.0, return_logdet=True)
+    chol = elimination.multifrontal_factor(opt_maps, Ab, 0.0)
+    xa = elimination.multifrontal_apply(opt_maps, chol, linsolve.gradient(lg0)["Pose3"])
+    rel_fa = ((xa - x).norm() / x.norm()).item()
+    H, _ = linsolve.assemble_dense(lg0)
+    sign, ld = torch.linalg.slogdet(H)
+    rel_ld = abs(float(stats["logdet"]) - float(ld)) / abs(float(ld))
+    log(f"factor / apply vs solve (f64): rel {rel_fa:.3e}; logdet {float(stats['logdet']):.12e} vs "
+        f"slogdet {float(ld):.12e} (sign {float(sign)}): rel {rel_ld:.3e}")
+    if not (rel_fa <= 1e-10 and rel_ld <= 1e-10 and float(sign) == 1.0):
+        raise AssertionError("factor / apply or the log-determinant disagree")
+    out.update(factor_apply_rel=rel_fa, logdet_rel=rel_ld)
+    del H
+
+    sva, sfa = synthetic.sphere_rings(4, 5, seed=SEED + 1)
+    nc = nonlinear_conjugate_gradient(convert.graph_from_arrays(sfa, device="cuda"),
+                                      convert.values_from_arrays(sva, device="cuda"),
+                                      OptimizerParams(max_iterations=50), device="cuda")
+    log(f"NCG (20-pose rings, 50 iterations): {nc.error_history[0]:.6e} -> {nc.error:.6e} in "
+        f"{nc.iterations} iterations")
+    check_result(nc, "NCG")
+    out["ncg"] = dict(start=nc.error_history[0], end=nc.error, iterations=nc.iterations)
+    return out
+
+
 def main():
     try:
         import torch
@@ -801,6 +1359,8 @@ def main():
     sys.path.insert(0, here)
     kernels_only = "--kernels-only" in sys.argv[1:]
     isam2_only = "--isam2-only" in sys.argv[1:]
+    smart_only = "--smart-only" in sys.argv[1:]
+    optimizers_only = "--optimizers-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -849,6 +1409,12 @@ def main():
             isam2_timed[name].setdefault(ROUTE_KERNEL[b[col]], []).append(b[:3] + (3,))
     log(f"iSAM2 d = 3 buckets ({ISAM2_SHAPES}): {len(isam2_level)} level shapes, "
         f"{len(isam2_wild)} wildfire shapes, {len(isam2_cases)} distinct")
+
+    if smart_only:
+        # phase 7 alone (its path runs no bucket kernel); no result line
+        run_smart(torch, here)
+        log(f"smart-only run passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     if isam2_only:
         # a check of this path alone: its kernels at their d = 3
@@ -900,6 +1466,12 @@ def main():
         f"optimizer plan {len(opt_maps.buckets)} buckets")
     log_routing(elimination, "sphere bench plan", bench_maps)
     log_routing(elimination, "sphere optimizer plan", opt_maps)
+
+    if optimizers_only:
+        # phase 8 alone on the sphere; no result line
+        run_optimizers(torch, v1, fa, va, g64, v64, g32, opt_maps, lg0)
+        log(f"optimizers-only run passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # the bundle-adjustment problem and its plans: one ordering, two
     # bucketings (bench.py's 4 per level, the optimizers' default 2), shared
@@ -1017,6 +1589,12 @@ def main():
     for name, graph, values in (("float32", g32, v32), ("float64", g64, v64)):
         step_ms[name], _ = time_step(torch, v1, f"GN iteration {name}", "iter",
                                      gn_step_fn(graph), graph, values, 10)
+
+    # 8. (on the sphere, while its graphs live) mixed-precision GN, dogleg,
+    # PCG LM, factor / apply, NCG
+    v1.reset_launch_counts()
+    opt_res = run_optimizers(torch, v1, fa, va, g64, v64, g32, opt_maps, lg0)
+    mixed_launches = opt_res["mixed"]["launches"]
     del g32, v32, g64, v64, lg0
     log(f"sphere phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1058,6 +1636,70 @@ def main():
     for name in ("float32", "float64"):
         a, b = ba_res[name, "multifrontal"].error, ba_res[name, "schur"].error
         log(f"BA LM {name}: final error multifrontal {a:.9e} schur {b:.9e}")
+
+    # the LM histories at the shape of tools/ba_reference.py, beside the
+    # JAX package's (f32, f64) and the port's CPU path (f32): the card's f32
+    # against the CPU's (the same plan) and the spread of two orderings
+    # (JAX's CCOLAMD plan and the port's) in f32; every f64 history agrees
+    with open(os.path.join(here, BA_REF)) as f:
+        bref = json.load(f)
+    ba_ref = {}
+    for name, dtype, np_dtype in (("float32", torch.float32, np.float32),
+                                  ("float64", torch.float64, np.float64)):
+        rdata = make_synthetic_ba(*bref["shape"], seed=bref["seed"], dtype=np_dtype)
+        r = levenberg_marquardt(*build_ba_graph(rdata, dtype=dtype, device="cuda"),
+                                LMParams(solver="multifrontal", max_iterations=bref["iterations"]),
+                                device="cuda")
+        ba_ref[name] = r.error_history
+        log(f"BA LM {name} at {bref['shape']} on the card: {['%.9e' % e for e in r.error_history]}; "
+            + "; ".join(f"{k}: {['%.9e' % e for e in v['error_history']]}"
+                        for k, v in bref["runs"].items() if k.endswith(name)))
+    # the control: the same f32 runs on the card with the plain PyTorch
+    # versions in place of all four kernels, then of K2 alone; and each
+    # variant's first damped step (lambda 1e-4) against the f64 step
+    rdata = make_synthetic_ba(*bref["shape"], seed=bref["seed"], dtype=np.float32)
+    r64 = make_synthetic_ba(*bref["shape"], seed=bref["seed"], dtype=np.float64)
+    gv64 = build_ba_graph(r64, dtype=torch.float64, device="cuda")
+    step64, _ = elimination.solve_linearized(*gv64, 1e-4)
+    step64 = torch.cat([step64[t].reshape(-1) for t in sorted(step64)])
+    c2_steps, c2_control, c2_trials = {}, {}, {}
+    for variant, names in (("kernels", ()), ("K2 plain", ("backsolve_bucket",)),
+                           ("all plain", tuple(KERNELS))):
+        with plain_kernels(names):
+            gv = build_ba_graph(rdata, dtype=torch.float32, device="cuda")
+            st, _ = elimination.solve_linearized(*gv, 1e-4)
+            st = torch.cat([st[t].reshape(-1) for t in sorted(st)]).double()
+            c2_steps[variant] = ((st - step64).norm() / step64.norm()).item()
+            # LM's own trial lines (lambda, bad pivots or error and rho)
+            with contextlib.redirect_stdout(io.StringIO()) as trials:
+                c2_control[variant] = levenberg_marquardt(
+                    *gv, LMParams(solver="multifrontal", max_iterations=bref["iterations"],
+                                  verbose=True), device="cuda").error_history
+            c2_trials[variant] = [ln[len("LM iter 1 "):] for ln in trials.getvalue().splitlines()
+                                  if ln.startswith("LM iter 1 ")]
+    del gv64, step64
+    log(f"BA LM float32 at {bref['shape']} on the card, control: "
+        + "; ".join(f"{k}: {['%.9e' % e for e in v]}" for k, v in c2_control.items())
+        + f"; first damped step (lambda 1e-4) in f32 vs the f64 step, rel: {c2_steps}; the "
+        f"first iteration's trials: {c2_trials}")
+    hist_rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    runs = bref["runs"]
+    c2 = dict(card_vs_port_cpu_f32=hist_rel(ba_ref["float32"], runs["port_float32"]["error_history"]),
+              jax_vs_port_cpu_f32=hist_rel(runs["jax_float32"]["error_history"],
+                                           runs["port_float32"]["error_history"]),
+              card_f64_vs_jax_f64=hist_rel(ba_ref["float64"], runs["jax_float64"]["error_history"]),
+              card=ba_ref, control=c2_control, first_step_rel_f64=c2_steps,
+              first_iteration_trials=c2_trials,
+              control_vs_port_cpu_f32={k: hist_rel(v, runs["port_float32"]["error_history"])
+                                       for k, v in c2_control.items()})
+    log(f"BA LM f32 (C2): card vs the port's CPU f32 rel {c2['card_vs_port_cpu_f32']:.3e}; the JAX "
+        f"package's f32 vs the port's CPU f32 rel {c2['jax_vs_port_cpu_f32']:.3e}; card f64 vs the "
+        f"JAX package's f64 rel {c2['card_f64_vs_jax_f64']:.3e}; the control vs the port's CPU "
+        f"f32 rel {c2['control_vs_port_cpu_f32']}")
+    if not (len(ba_ref["float64"]) == len(runs["jax_float64"]["error_history"])
+            and c2["card_f64_vs_jax_f64"] <= 1e-8
+            and all(e == e for e in ba_ref["float32"])):
+        raise AssertionError("BA LM: the card's f64 history differs from the JAX package's")
 
     # first damped step (lambda = 1e-4): two independent eliminations of the
     # same float64 system, the multifrontal sweep and the landmark Schur solve
@@ -1115,9 +1757,16 @@ def main():
 
     # 6. the iSAM2 path (float64), through run_city10000 / ISAM2.update
     isam2 = run_isam2(torch, here, v1)
+    log(f"iSAM2 phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # 7. smart-factor BA (no bucket kernel on its path: dense library algebra,
+    # as in the JAX package)
+    smart_res = run_smart(torch, here)
+    log(f"smart phase done at {time.perf_counter() - t_start:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 7. result lines
+    # 9. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
@@ -1133,24 +1782,30 @@ def main():
                                  buckets=r["buckets_timed"])
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname] + isam2["launches"][kname],
+            launches=launches[kname] + isam2["launches"][kname] + mixed_launches[kname],
             max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
             launches_sphere_path=sphere_launches[kname], launches_ba_path=ba_launches[kname],
             launches_isam2_path=isam2["launches"][kname],
+            launches_mixed_gn_path=mixed_launches[kname],
+            mixed_gn_launches_per_iter=opt_res["mixed"]["launches_per_iter"][kname],
             isam2_launches_per_update=isam2["launches_per_update"][kname], isam2_d3_sweep=isw,
-            cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname],
-            cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname])
-            / max(1, launches[kname] + isam2["launches"][kname]),
+            cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname]
+            + opt_res["mixed"]["cuda_launches"][kname],
+            cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname]
+                                      + opt_res["mixed"]["cuda_launches"][kname])
+            / max(1, launches[kname] + isam2["launches"][kname] + mixed_launches[kname]),
             stage_sources=STAGE_SOURCES.get(kname, []),
             k1_same_buckets_ms=f64.get("k1_same_buckets_ms"),
             timed=f"one sweep of the {f64['buckets_timed']} buckets the routing gives this "
                   f"kernel in the sphere and BA bench plans",
         ))
     isam2.pop("batch_gn_history")
-    print(json.dumps({"kernels": out, "gn_ms_per_iter": step_ms,
-                      "ba_lm_iters_per_s": ba_iters_per_s, "isam2": isam2}), flush=True)
+    print(json.dumps(finite_json({"kernels": out, "gn_ms_per_iter": step_ms,
+                                  "ba_lm_iters_per_s": ba_iters_per_s, "ba_lm_reference": c2,
+                                  "isam2": isam2, "smart": smart_res, "optimizers": opt_res}),
+                     allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

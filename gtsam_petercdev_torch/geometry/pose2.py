@@ -144,3 +144,14 @@ def transform_to(p, point):
     dx = point[..., 0] - p[..., 0]
     dy = point[..., 1] - p[..., 1]
     return torch.stack([c * dx + s * dy, -s * dx + c * dy], dim=-1)
+
+
+def bearing(p, point):
+    """Bearing angle to a world point, in the pose frame (Rot2 as angle)."""
+    d = transform_to(p, point)
+    return torch.atan2(d[..., 1], d[..., 0])
+
+
+def range_to(p, point):
+    d = transform_to(p, point)
+    return torch.linalg.norm(d, dim=-1)

@@ -190,3 +190,59 @@ def retract(R, w):
 def local(R1, R2):
     """Tangent of R2 in the chart at R1: Log(R1^{-1} R2)."""
     return logmap(between(R1, R2))
+
+
+def rpy(R):
+    """Roll-pitch-yaw (xyz) extraction — for reporting only."""
+    return torch.stack(
+        [
+            torch.atan2(R[..., 2, 1], R[..., 2, 2]),
+            -torch.asin(torch.clamp(R[..., 2, 0], -1.0, 1.0)),
+            torch.atan2(R[..., 1, 0], R[..., 0, 0]),
+        ],
+        dim=-1,
+    )
+
+
+def from_quaternion(q):
+    """Quaternion [...,4] (w,x,y,z) -> rotation matrix (for g2o I/O)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz),
+                         2 * (qx * qz + qw * qy)], dim=-1),
+            torch.stack([2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz),
+                         2 * (qy * qz - qw * qx)], dim=-1),
+            torch.stack([2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx),
+                         1 - 2 * (qx * qx + qy * qy)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def to_quaternion(R):
+    """Rotation matrix -> quaternion [...,4] (w,x,y,z), Shepperd's method:
+    of four formulations, the one with the largest pivot."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12))
+
+    s0 = safe_sqrt(1 + tr)
+    q0 = torch.stack([s0 / 2, (m21 - m12) / (2 * s0), (m02 - m20) / (2 * s0),
+                      (m10 - m01) / (2 * s0)], dim=-1)
+    s1 = 2 * safe_sqrt(1 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / s1, s1 / 4, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1)
+    s2 = 2 * safe_sqrt(1 - m00 + m11 - m22)
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, s2 / 4, (m12 + m21) / s2], dim=-1)
+    s3 = 2 * safe_sqrt(1 - m00 - m11 + m22)
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, s3 / 4], dim=-1)
+
+    k = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(qs, -2, k[..., None, None].expand(*k.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

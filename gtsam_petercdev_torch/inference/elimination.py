@@ -27,12 +27,16 @@ host.
 Mixed-dimension variables (tangent dim < d) are padded to d with identity
 rows on the fake dims.
 
-`multifrontal_factor` / `multifrontal_apply` (the subgraph
-preconditioner's factor-once / apply-many split) come with a later slice.
+`multifrontal_factor` / `multifrontal_apply` split the solve into
+factor-once / apply-many (the subgraph preconditioner's use): the factor
+runs the same bucket routing (K4 / K3 / K1) and keeps each bucket's L,
+Linv and W; an apply runs the forward solve (plain PyTorch, as in the JAX
+package) and K2 for the back-substitution.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -46,6 +50,7 @@ from gtsam_petercdev_torch.inference.symbolic import (
     EliminationPlan,
     symbolic_eliminate,
 )
+from gtsam_petercdev_torch.inference import kernels
 from gtsam_petercdev_torch.ops import cholesky, cholesky_v2
 
 
@@ -176,6 +181,7 @@ class DeviceMaps:
     hdiag_plan: DeviceGatherSum
     eye_vals: torch.Tensor  # float64, cast per solve dtype
     iperm: torch.Tensor
+    var_g_rows: torch.Tensor  # [n] g-pool row of each variable's frontal slot, gid order
     buckets: List[DeviceBucket]
 
 
@@ -236,12 +242,18 @@ def _upload(maps: NumericMaps, device) -> DeviceMaps:
                 fro_idx=up(bm.fro_idx.reshape(-1)),
             )
         )
+    var_g_rows = np.zeros(maps.plan.n, dtype=np.int64)
+    for bm in maps.buckets:
+        rows = bm.g_start + np.arange(bm.B)[:, None] * bm.mb + np.arange(bm.nf)[None, :]
+        real = bm.fro_idx < maps.plan.n
+        var_g_rows[maps.plan.perm[bm.fro_idx[real]]] = rows[real]
     return DeviceMaps(
         asm_plan=DeviceGatherSum.of(maps.asm_plan, device),
         asm_g_plan=DeviceGatherSum.of(maps.asm_g_plan, device),
         hdiag_plan=DeviceGatherSum.of(maps.hdiag_plan, device),
         eye_vals=torch.as_tensor(maps.eye_vals, dtype=torch.float64).to(device),
         iperm=up(maps.plan.iperm),
+        var_g_rows=up(var_g_rows),
         buckets=buckets,
     )
 
@@ -569,7 +581,7 @@ def _extend_add(db: DeviceBucket, outs, m: int, d: int):
     dg [B, m]). A child's dense U is gathered by the scalar row map; block-
     layout U (from K4) by its block and in-block indices, without ever
     becoming [B, sd, sd]."""
-    incs, incgs = [], []
+    incs = []
     for ch_bf, sel, rowmap, c, blocked in db.ext:
         out = outs[ch_bf]
         if "U_blocks" in out:
@@ -578,43 +590,33 @@ def _extend_add(db: DeviceBucket, outs, m: int, d: int):
             Ub = out["U_blocks"][sel].reshape(-1, ns_c, ns_c, d, d)
             Ub = tnf.pad(Ub, (0, 0, 0, 0, 0, 1, 0, 1))  # one zero block per block axis
             inc = Ub[c, bi[:, :, None], bi[:, None, :], ii[:, :, None], ii[:, None, :]]
-            ugs = out["ug_blocks"][sel].reshape(-1, ns_c * d)
         else:
             Us = tnf.pad(out["U"][sel], (0, 1, 0, 1))
             inc = Us[c, rowmap[:, :, None], rowmap[:, None, :]]
-            ugs = out["ug"][sel]
         incs.append(inc.reshape(-1, m * m))
-        incgs.append(torch.gather(tnf.pad(ugs, (0, 1)), 1, rowmap))
-    return (apply_gather_sum(db.ext_seg, torch.cat(incs, dim=0)),
-            apply_gather_sum(db.ext_seg, torch.cat(incgs, dim=0)))
+    ugs = {ch_bf: outs[ch_bf]["ug_blocks"].flatten(1) if "ug_blocks" in outs[ch_bf]
+           else outs[ch_bf]["ug"] for ch_bf, *_ in db.ext}
+    return apply_gather_sum(db.ext_seg, torch.cat(incs, dim=0)), _extend_add_g(db, ugs)
 
 
-def multifrontal_solve(
-    maps: NumericMaps,
-    Ab,
-    lam=0.0,
-    diagonal_damping: bool = False,
-    return_stats: bool = False,
-):
-    """Solve (J^T J + lam D) x = J^T b via the planned supernodal Cholesky.
+def _extend_add_g(db: DeviceBucket, ugs) -> torch.Tensor:
+    """Children's ug [B_c, sd_c] (by child bucket) in the parent's frame,
+    summed per parent: [B, m]."""
+    incgs = [torch.gather(tnf.pad(ugs[ch_bf][sel], (0, 1)), 1, rowmap)
+             for ch_bf, sel, rowmap, _, _ in db.ext]
+    return apply_gather_sum(db.ext_seg, torch.cat(incgs, dim=0))
 
-    Ab: tuple over factor batches of (A_blocks tuple, b); the solve runs on
-    their device. Returns x [n, d] in GLOBAL variable-id order; with
-    return_stats=True returns (x, stats) where stats['bad_pivots'] (an int32
-    device scalar) counts clamped pivots."""
-    plan = maps.plan
-    d = plan.d
-    b0 = Ab[0][1]
-    dtype, dev = b0.dtype, b0.device
-    dm = maps.on_device(dev)
-    pool, gp = assemble(maps, dm, Ab, lam, diagonal_damping)
 
-    # bottom-up: per bucket one batched partial Cholesky; each bucket pulls
-    # its children's Schur contributions (U, ug) into its frame by index
-    # and segment-sums them per parent (the extend-add)
+def _eliminate(maps: NumericMaps, dm: DeviceMaps, pool, gp):
+    """Bottom-up: per bucket one batched partial Cholesky on the kernel
+    `bucket_route` picks; each bucket pulls its children's Schur
+    contributions (U, ug) into its frame by index and segment-sums them per
+    parent (the extend-add). Returns (the per-bucket outputs, the bad-pivot
+    count as an int32 device scalar)."""
+    d = maps.plan.d
     outs = []
-    bad_total = torch.zeros((), dtype=torch.int32, device=dev)
-    itemsize = b0.element_size()
+    bad_total = torch.zeros((), dtype=torch.int32, device=pool.device)
+    itemsize = pool.element_size()
     for bm, db in zip(maps.buckets, dm.buckets):
         B, nf, mb = bm.B, bm.nf, bm.mb
         m = mb * d
@@ -635,23 +637,88 @@ def multifrontal_solve(
             out = chol(Fm, gm, nf, d)
         bad_total = bad_total + out["bad"]
         outs.append(out)
+    return outs, bad_total
 
-    # top-down back-substitution
-    x = torch.zeros((plan.n + 1, d), dtype=dtype, device=dev)
-    for bm, db, out in zip(reversed(maps.buckets), reversed(dm.buckets), reversed(outs)):
+
+def _back_substitute(maps: NumericMaps, dm: DeviceMaps, factors, ys) -> torch.Tensor:
+    """Top-down: K2 solves L^T x_f = y - W x_s per bucket; factors is
+    (L, Linv, W) per bucket. Returns x [n, d] in global variable-id order."""
+    d = maps.plan.d
+    y0 = ys[0]
+    x = torch.zeros((maps.plan.n + 1, d), dtype=y0.dtype, device=y0.device)
+    for bm, db, (L, Linv, W), y in zip(reversed(maps.buckets), reversed(dm.buckets),
+                                       reversed(factors), reversed(ys)):
         B, nf, ns = bm.B, bm.nf, bm.ns
         if ns > 0:
             xs = x[db.sep_idx].reshape(B, ns * d)
         else:
-            xs = torch.zeros((B, 0), dtype=dtype, device=dev)
-        xf = cholesky_v2.backsolve_bucket(out["L"], out["Linv"], out["W"], out["y"], xs, nf, d)
+            xs = torch.zeros((B, 0), dtype=y.dtype, device=y.device)
+        xf = cholesky_v2.backsolve_bucket(L, Linv, W, y, xs, nf, d)
         x[db.fro_idx] = xf.reshape(B * nf, d)
-
     # permuted rows -> global variable id order
-    xg = x[:-1][dm.iperm]
-    if return_stats:
-        return xg, {"bad_pivots": bad_total}
+    return x[:-1][dm.iperm]
+
+
+def multifrontal_solve(
+    maps: NumericMaps,
+    Ab,
+    lam=0.0,
+    diagonal_damping: bool = False,
+    return_stats: bool = False,
+    return_logdet: bool = False,
+):
+    """Solve (J^T J + lam D) x = J^T b via the planned supernodal Cholesky.
+
+    Ab: tuple over factor batches of (A_blocks tuple, b); the solve runs on
+    their device. Returns x [n, d] in GLOBAL variable-id order; with
+    return_stats=True returns (x, stats) where stats['bad_pivots'] (an int32
+    device scalar) counts clamped pivots. return_logdet=True returns the
+    stats too, with stats['logdet'] = log det(J^T J + lam D) (padded slots
+    carry identity pivots and add log 1 = 0)."""
+    dm = maps.on_device(Ab[0][1].device)
+    pool, gp = assemble(maps, dm, Ab, lam, diagonal_damping)
+    outs, bad_total = _eliminate(maps, dm, pool, gp)
+    xg = _back_substitute(maps, dm, [(o["L"], o["Linv"], o["W"]) for o in outs],
+                          [o["y"] for o in outs])
+    if return_stats or return_logdet:
+        stats = {"bad_pivots": bad_total}
+        if return_logdet:
+            stats["logdet"] = sum(
+                2.0 * torch.sum(torch.log(torch.clamp(
+                    torch.diagonal(o["L"], dim1=1, dim2=2), min=1e-300))) for o in outs)
+        return xg, stats
     return xg
+
+
+def multifrontal_factor(maps: NumericMaps, Ab, lam=0.0):
+    """Assemble (J^T J + lam I) and eliminate it, keeping each bucket's
+    factor (L, Linv, W) for repeated `multifrontal_apply` calls. The buckets
+    take the kernels `multifrontal_solve` takes."""
+    dm = maps.on_device(Ab[0][1].device)
+    pool, gp = assemble(maps, dm, Ab, lam, False)
+    outs, _ = _eliminate(maps, dm, pool, gp)
+    return [(o["L"], o["Linv"], o["W"]) for o in outs]
+
+
+def multifrontal_apply(maps: NumericMaps, chol, r: torch.Tensor) -> torch.Tensor:
+    """x = H^-1 r for the factor `chol` of `multifrontal_factor`; r [n, <= d]
+    in global variable-id order. Bottom-up forward solve L y = r with the
+    children's g-downdates extend-added, then K2's back-substitution."""
+    d = maps.plan.d
+    dm = maps.on_device(r.device)
+    gp = torch.zeros((maps.n_grows + 1, d), dtype=r.dtype, device=r.device)
+    gp[dm.var_g_rows] = _pad_last(r, d)
+    ys, ugs = [], {}
+    for bf, (bm, db, (L, Linv, W)) in enumerate(zip(maps.buckets, dm.buckets, chol)):
+        B, nf, ns, fd = bm.B, bm.nf, bm.ns, bm.nf * d
+        gm = gp[bm.g_start : bm.g_start + B * bm.mb].reshape(B, bm.mb * d)
+        if db.ext:
+            gm = gm + _extend_add_g(db, ugs)
+        y = kernels.forward_solve_bucket(L, Linv, gm[:, :fd], nf, d)
+        if ns > 0:
+            ugs[bf] = gm[:, fd:] - torch.einsum("bkf,bk->bf", W, y)
+        ys.append(y)
+    return _back_substitute(maps, dm, chol, ys)
 
 
 # ---------------------------------------------------------------------------
@@ -671,12 +738,24 @@ def set_graph_plan(graph, lg, plan: EliminationPlan, maps: NumericMaps) -> None:
     structure: a plan depends on the structure alone, so a caller that
     solves one structure in two dtypes, or with an ordering of its own,
     plans once."""
+    _PLANNED.add(graph)
     graph.__dict__.setdefault("_mf_plans", {})[_plan_key(lg)] = (plan, maps)
+
+
+_PLANNED = weakref.WeakSet()  # graphs holding cached plans
+
+
+def clear_plan_cache() -> None:
+    """Forget every cached (plan, maps), so each graph plans anew."""
+    for graph in list(_PLANNED):
+        graph.__dict__.pop("_mf_plans", None)
+    _PLANNED.clear()
 
 
 def _graph_plan(graph, lg):
     """(plan, maps) for this graph's structure, cached on the graph."""
     key = _plan_key(lg)
+    _PLANNED.add(graph)
     cache = graph.__dict__.setdefault("_mf_plans", {})
     ent = cache.get(key)
     if ent is None:

@@ -22,11 +22,15 @@ ISAM2Clique.{h,cpp} (cached separator factors, wildfire back-substitution).
 
 * The local problem (owned factors of the affected cliques, orphan
   messages, new factors) is assembled into one block pool [n_blocks + 1,
-  d*d] by index_add_ and eliminated level by level, one bucket a level
+  d*d] and eliminated level by level, one bucket a level
   (`level_route`): K4 (`ops.cholesky.partial_cholesky_blocks`) factors the
   pool slice in place when a clique fits shared memory, else K1
   (`ops.cholesky_v2.partial_cholesky`) factors its dense relayout; U / ug
-  are extend-added into the parents' blocks of the same pool. Every
+  are extend-added into the parents' blocks of the same pool. Every pool
+  sum is split on the host into rounds of unique destinations
+  (`AddRounds`), so the card adds the same operands in the same order as
+  the CPU's sequential `index_add_`: no atomics race, and a run repeats
+  bit for bit. Every
   level's frontal blocks are complete before the level runs (the children
   are in earlier levels), so K4 takes any bucket that fits, not only
   leaves. The index maps of a local problem depend on its structure alone
@@ -56,7 +60,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Sequence, Set, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -184,15 +188,17 @@ class _LocalPlan:
     is a function of the local problem's STRUCTURE only, uploaded once and
     reused on every cache hit (the odometry steady state)."""
 
-    # per factor-gather entry (sorted group order): (g, N, blk [N*K*K],
-    # gix [N*K] on the device, own_lcid [N] local clique owning each row)
+    # per factor-gather entry (sorted group order): (g, N, blk rounds over
+    # the N*K*K Hessian blocks, gix rounds over the N*K gradient rows,
+    # own_lcid [N] local clique owning each row)
     fac: List[Tuple]
-    # per message class: (src, pkey, nsc, blk [M*nsc*nsc], gix [M*nsc],
-    # entry_order [M] indices into the update's msg entries, own_lcid [M])
+    # per message class: (src, pkey, nsc, blk rounds over M*nsc*nsc blocks,
+    # gix rounds over M*nsc rows, entry_order [M] indices into the update's
+    # msg entries, own_lcid [M])
     msg: List[Tuple]
-    eye_rows: torch.Tensor  # [P] pool rows that get identity (padding)
+    eye: "AddRounds"  # identity on padded frontal blocks and fake dims
     eye_vals: torch.Tensor  # [P, d*d]
-    ext: List[Tuple[torch.Tensor, torch.Tensor]]  # per level (ext [B*ns*ns], extg [B*ns])
+    ext: List[Tuple["AddRounds", "AddRounds"]]  # per level: U blocks, ug rows
     # per level: (nf, ns, B, cliques: [(local cid, frontal_lv, separator_lv,
     # parent local cid)]) where *_lv index local_vars
     levels_meta: List[Tuple]
@@ -203,10 +209,57 @@ class _LocalPlan:
 
     @property
     def nbytes(self) -> int:
-        ts = [self.eye_rows, self.eye_vals]
-        ts += [t for e in self.fac for t in e[2:4]] + [t for e in self.msg for t in e[3:5]]
-        ts += [t for e in self.ext for t in e]
-        return sum(t.numel() * t.element_size() for t in ts)
+        rounds = [self.eye] + [r for e in self.fac for r in e[2:4]]
+        rounds += [r for e in self.msg for r in e[3:5]] + [r for e in self.ext for r in e]
+        return self.eye_vals.numel() * self.eye_vals.element_size() + sum(
+            r.flat.numel() * r.flat.element_size() for r in rounds)
+
+
+class AddRounds(NamedTuple):
+    """A host-planned sum dst[dest[s]] += src[s] split into rounds with
+    unique destinations. Round k adds the k-th contribution (in source
+    order) of every destination that has one: each round's `index_add_`
+    has no duplicate index, so the card adds without racing atomics, in
+    the order of the CPU's sequential `index_add_`. Sources bound for the
+    trash row (map padding) are dropped."""
+
+    rounds: Tuple[Tuple[Optional[torch.Tensor], torch.Tensor], ...]  # (src rows or None = all, dest)
+    flat: torch.Tensor  # the one upload the rounds are views of
+
+
+def _plan_rounds(dest: np.ndarray, trash: int, up) -> AddRounds:
+    """Split the scatter-add of source rows into `dest` (host array) into
+    rounds of unique destinations; `up` uploads one int64 array."""
+    dest = np.asarray(dest, dtype=np.int64).reshape(-1)
+    keep = np.flatnonzero(dest != trash)
+    n = len(keep)
+    by_dest = np.argsort(dest[keep], kind="stable")
+    ds = dest[keep][by_dest]
+    first = np.r_[True, ds[1:] != ds[:-1]] if n else np.zeros(0, dtype=bool)
+    if first.all():
+        if n == len(dest):  # one round over every source row
+            flat = up(dest)
+            return AddRounds(((None, flat),), flat)
+        pos, sizes = keep, np.array([n] if n else [], dtype=np.int64)
+    else:
+        # rank of each source among those of its destination, in source order
+        idx = np.arange(n)
+        rank = np.empty(n, dtype=np.int64)
+        rank[by_dest] = idx - np.maximum.accumulate(np.where(first, idx, 0))
+        pos = keep[np.argsort(rank, kind="stable")]
+        sizes = np.bincount(rank)
+    flat = up(np.concatenate([pos, dest[pos]]))
+    n, rounds, a = len(pos), [], 0
+    for k in sizes.tolist():
+        rounds.append((flat[a : a + k], flat[n + a : n + a + k]))
+        a += k
+    return AddRounds(tuple(rounds), flat)
+
+
+def _add_rounds(dst: torch.Tensor, plan: AddRounds, src: torch.Tensor) -> None:
+    """dst[dest[s]] += src[s] for every planned source row, round by round."""
+    for pos, dest in plan.rounds:
+        dst.index_add_(0, dest, src if pos is None else src.index_select(0, pos))
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +301,7 @@ def _new_pool(n_blocks: int, n_grows: int, d: int, dtype, device):
             torch.zeros((n_grows + 1, d), dtype=dtype, device=device))
 
 
-def _scatter_group(pool, gp, A, b, blk, gix, sign: float, d: int) -> None:
+def _scatter_group(pool, gp, A, b, blk: AddRounds, gix: AddRounds, sign: float, d: int) -> None:
     """Add one factor group's Hessian blocks A_k^T A_l (every (k, l) pair,
     both triangles) and gradients A_k^T b into the pool."""
     Ap = torch.stack([tnf.pad(Ak, (0, d - Ak.shape[2])) for Ak in A], dim=1)  # [N, K, d, d]
@@ -256,19 +309,19 @@ def _scatter_group(pool, gp, A, b, blk, gix, sign: float, d: int) -> None:
     g = torch.einsum("nkri,nr->nki", Ap, b)
     if sign != 1.0:
         H, g = H * sign, g * sign
-    pool.index_add_(0, blk, H.reshape(-1, d * d))
-    gp.index_add_(0, gix, g.reshape(-1, d))
+    _add_rounds(pool, blk, H.reshape(-1, d * d))
+    _add_rounds(gp, gix, g.reshape(-1, d))
 
 
-def _scatter_msg_class(pool, gp, U, ug, blk, gix) -> None:
+def _scatter_msg_class(pool, gp, U, ug, blk: AddRounds, gix: AddRounds) -> None:
     """Add one class of cached messages (U in block layout) into the pool."""
     d = ug.shape[-1]
-    pool.index_add_(0, blk, U.reshape(-1, d * d))
-    gp.index_add_(0, gix, ug.reshape(-1, d))
+    _add_rounds(pool, blk, U.reshape(-1, d * d))
+    _add_rounds(gp, gix, ug.reshape(-1, d))
 
 
-def _scatter_eye(pool, rows, vals) -> None:
-    pool.index_add_(0, rows, vals)
+def _scatter_eye(pool, rows: AddRounds, vals) -> None:
+    _add_rounds(pool, rows, vals)
 
 
 def _max_abs(x: torch.Tensor) -> torch.Tensor:
@@ -293,10 +346,12 @@ def level_route(nf: int, ns: int, d: int, itemsize: int) -> str:
     return "blocks" if cholesky.fits_smem(nf, ns, d, itemsize) else "global"
 
 
-def _level(pool, gp, boff: int, goff: int, B: int, nf: int, ns: int, d: int, ext, extg) -> Dict:
+def _level(pool, gp, boff: int, goff: int, B: int, nf: int, ns: int, d: int,
+           ext: AddRounds, extg: AddRounds) -> Dict:
     """Eliminate one level bucket of B cliques whose frontal blocks are
     pool[boff : boff + B*mb*mb], then extend-add each clique's U / ug into
-    its parent's blocks (ext / extg; pads point at the trash rows).
+    its parent's blocks (ext / extg, planned over the B*ns*ns blocks and
+    B*ns rows; pads are dropped).
     Returns L, Linv, W, y, U [B, ns*ns, d, d], ug [B, ns, d], bad."""
     mb = nf + ns
     blocks = pool[boff : boff + B * mb * mb]
@@ -311,8 +366,8 @@ def _level(pool, gp, boff: int, goff: int, B: int, nf: int, ns: int, d: int, ext
         out["U"] = cholesky.blocks_from_dense(out["U"], ns, d)
         out["ug"] = out["ug"].reshape(B, ns, d)
     if ns > 0:
-        pool.index_add_(0, ext, out["U"].reshape(-1, d * d))
-        gp.index_add_(0, extg, out["ug"].reshape(-1, d))
+        _add_rounds(pool, ext, out["U"].reshape(-1, d * d))
+        _add_rounds(gp, extg, out["ug"].reshape(-1, d))
     return out
 
 
@@ -629,7 +684,7 @@ class IncrementalEngine:
                     orphan_owner[ei] = int(own_lcid[mi])
             U, ug = _gather_msgs(pc.arrays.U, pc.arrays.ug, self._upload(prow))
             _scatter_msg_class(pool, gp, U, ug, blk, gix)
-        _scatter_eye(pool, plan.eye_rows, plan.eye_vals)
+        _scatter_eye(pool, plan.eye, plan.eye_vals)
 
         # ---- bottom-up level sweep ----
         outs = []
@@ -769,7 +824,8 @@ class IncrementalEngine:
             blk = (blk_base[own][:, None, None] + pos[:, :, None] * mb_of[own][:, None, None]
                    + pos[:, None, :])
             gix = g_base[own][:, None] + pos
-            plan_fac.append((g, N, up(blk.reshape(-1)), up(gix.reshape(-1)), own.copy()))
+            plan_fac.append((g, N, _plan_rounds(blk, trash_blk, up),
+                             _plan_rounds(gix, trash_g, up), own.copy()))
 
         # ---- message scatter maps, one entry per (source, class) ----
         by_class: Dict[Tuple, List[int]] = {}
@@ -791,8 +847,8 @@ class IncrementalEngine:
                 nr = len(pv)
                 blk[mi, :nr, :nr] = blk_base[ownc.cid] + ps[:, None] * mb_of[ownc.cid] + ps[None, :]
                 gix[mi, :nr] = g_base[ownc.cid] + ps
-            plan_msg.append((src, pkey, nsc, up(blk.reshape(-1)), up(gix.reshape(-1)),
-                             list(idxs), own_lcid))
+            plan_msg.append((src, pkey, nsc, _plan_rounds(blk, trash_blk, up),
+                             _plan_rounds(gix, trash_g, up), list(idxs), own_lcid))
 
         # ---- identity on padded frontal blocks and on fake dims ----
         eye_rows, eye_vals = [], []
@@ -826,7 +882,7 @@ class IncrementalEngine:
                     ext[i, :nr, :nr] = (blk_base[p.cid] + ppos[:, None] * mb_of[p.cid]
                                         + ppos[None, :])
                     extg[i, :nr] = g_base[p.cid] + ppos
-            ext_maps.append((up(ext.reshape(-1)), up(extg.reshape(-1))))
+            ext_maps.append((_plan_rounds(ext, trash_blk, up), _plan_rounds(extg, trash_g, up)))
 
         # ---- per-level clique metadata (for CliqueRec construction) ----
         levels_meta = []
@@ -837,7 +893,7 @@ class IncrementalEngine:
             levels_meta.append((bk.nf, bk.ns, len(bk.cliques), clqs))
 
         return _LocalPlan(
-            fac=plan_fac, msg=plan_msg, eye_rows=up(np.asarray(eye_rows, dtype=np.int64)),
+            fac=plan_fac, msg=plan_msg, eye=_plan_rounds(eye_rows, trash_blk, up),
             eye_vals=up(eye_vals_np, dtype=self.dtype), ext=ext_maps, levels_meta=levels_meta,
             n_cliques=len(cliques), n_blocks=n_blocks, n_grows=n_grows,
             lvl_offsets=tuple(lvl_offsets))

@@ -11,8 +11,9 @@ Numerical-failure surfacing (choleskyCareful semantics): a pivot <= eps
 (eps = 1e-10 in both dtypes) is clamped to eps and COUNTED; callers get the
 bad-pivot count so LM can tell "indefinite at this lambda" from success.
 
-`forward_solve_bucket` / `tri_lower_inv` come with the subgraph and
-marginal slices.
+`forward_solve_bucket` (the forward half of `elimination.multifrontal_apply`)
+and `tri_lower_inv` (the Bayes-tree marginals' L^-1) are plain PyTorch in
+the port as they are plain XLA in the JAX package: no TPU kernel to port.
 """
 
 from __future__ import annotations
@@ -127,3 +128,30 @@ def backsolve_bucket(L: torch.Tensor, Linv: torch.Tensor, rhs: torch.Tensor, nf:
         rj = rhs[:, jd : jd + d] - torch.einsum("bfk,bf->bk", L[:, :, jd : jd + d], x)
         x[:, jd : jd + d] = torch.einsum("bkj,bk->bj", Linv[:, j], rj)  # Linv_j^T rj
     return x
+
+
+def forward_solve_bucket(L: torch.Tensor, Linv: torch.Tensor, rhs: torch.Tensor, nf: int, d: int):
+    """Solve L y = rhs (forward block substitution). L [B, fd, fd] lower,
+    rhs [B, fd] -> y [B, fd]."""
+    y = torch.zeros_like(rhs)
+    for j in range(nf):
+        jd = j * d
+        # subtract the solved block rows (y is still zero on rows >= jd)
+        rj = rhs[:, jd : jd + d] - torch.einsum("bkf,bf->bk", L[:, jd : jd + d, :], y)
+        y[:, jd : jd + d] = torch.einsum("bjk,bk->bj", Linv[:, j], rj)
+    return y
+
+
+def tri_lower_inv(L: torch.Tensor, Linv: torch.Tensor, nf: int, d: int):
+    """Full inverse of the lower-triangular L [B, fd, fd] by blocked forward
+    substitution (Linv are the diagonal-block inverses). The Bayes-tree
+    marginal sweep needs it: Sigma_FF = L^-T L^-1."""
+    Z = torch.zeros_like(L)
+    eye_d = torch.eye(d, dtype=L.dtype, device=L.device)
+    for i in range(nf):
+        idd = i * d
+        # rhs_i = e_i - sum_{k<i} L[i,k] Z[k] (Z rows >= idd still zero)
+        Ei = -torch.einsum("bkf,bfg->bkg", L[:, idd : idd + d, :], Z)
+        Ei[:, :, idd : idd + d] += eye_d
+        Z[:, idd : idd + d, :] = torch.einsum("bij,bjf->bif", Linv[:, i], Ei)
+    return Z

@@ -3,9 +3,14 @@
 Port of gtsam_petercdev_tpu/linear/solve.py:
   * `gradient` / `hvp`: matrix-free J^T b and (J^T J) v, one batched
     product per factor batch plus an `index_add_` per slot.
+  * `hessian_block_diagonal`: per-variable D x D blocks (hessianDiagonal),
+    the block-Jacobi preconditioner.
   * `assemble_dense` / `dense_solve`: the exact dense Cholesky solve — the
     oracle the sparse multifrontal path is checked against.
-`pcg_solve` (block-Jacobi PCG) comes with a later slice.
+  * `pcg_solve`: block-Jacobi preconditioned CG (PCGSolver), matrix-free;
+    `pcg`: the same iteration with any operator and preconditioner. JAX's
+    `lax.while_loop` is a host loop here, its stopping rule unchanged:
+    each test of it is one device -> host read (`_cg_continues`).
 
 Delta vectors are VectorValues: {type_name: [N_t, dim_t]}.
 """
@@ -62,6 +67,32 @@ def hvp(lg: LinearizedGraph, v: VectorValues) -> VectorValues:
             contrib = lb.sign * torch.einsum("ndk,nd->nk", lb.A[k], u)
             out[t].index_add_(0, _rows(lb, k), contrib)
     return out
+
+
+def hessian_block_diagonal(lg: LinearizedGraph) -> Dict[str, torch.Tensor]:
+    """Per-variable diagonal blocks of J^T J: {t: [N_t, d, d]}."""
+    b0 = lg.batches[0].b
+    out = {
+        t: torch.zeros((n, _tdim(t), _tdim(t)), dtype=b0.dtype, device=b0.device)
+        for t, n in lg.type_counts.items()
+    }
+    for lb in lg.batches:
+        for k, t in enumerate(lb.var_types):
+            blk = lb.sign * torch.einsum("ndi,ndj->nij", lb.A[k], lb.A[k])
+            out[t].index_add_(0, _rows(lb, k), blk)
+    return out
+
+
+def error(lg: LinearizedGraph, delta: VectorValues) -> torch.Tensor:
+    """0.5 || A delta - b ||^2 (linear model cost at delta)."""
+    b0 = lg.batches[0].b
+    total = torch.zeros((), dtype=b0.dtype, device=b0.device)
+    for lb in lg.batches:
+        u = -lb.b
+        for k, t in enumerate(lb.var_types):
+            u = u + torch.einsum("ndk,nk->nd", lb.A[k], delta[t][_rows(lb, k)])
+        total = total + lb.sign * 0.5 * torch.sum(u * u)
+    return total
 
 
 def linearized_decrease(lg: LinearizedGraph, delta: VectorValues) -> torch.Tensor:
@@ -135,10 +166,88 @@ def assemble_dense(lg: LinearizedGraph):
 
 
 def dense_solve(H: torch.Tensor, g: torch.Tensor, lam=0.0, diagonal_damping: bool = False):
-    """Solve (H + lam * D) delta = g with D = I or diag(H)."""
+    """Solve (H + lam * D) delta = g with D = I or diag(H). Where the
+    Cholesky factorization fails (not positive definite), delta is NaN, as
+    the JAX package's cho_factor leaves it, and the caller's error test
+    rejects the step; the check stays on the device (no host read)."""
     if diagonal_damping:
         damp = torch.diag(torch.diagonal(H))
     else:
         damp = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
-    L = torch.linalg.cholesky(H + lam * damp)
-    return torch.cholesky_solve(g[:, None], L)[:, 0]
+    L, info = torch.linalg.cholesky_ex(H + lam * damp)
+    x = torch.cholesky_solve(g[:, None], L)[:, 0]
+    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
+
+
+# --- preconditioned conjugate gradients ---------------------------------------
+
+
+def _vdot(a: VectorValues, b: VectorValues) -> torch.Tensor:
+    return sum(torch.vdot(a[t].reshape(-1), b[t].reshape(-1)) for t in a)
+
+
+def _cg_continues(it: int, max_iters: int, rr: torch.Tensor, limit: torch.Tensor) -> bool:
+    """The CG loop's test: it < max_iters and r.r > limit (one device -> host
+    read of the comparison)."""
+    return it < max_iters and bool(rr > limit)
+
+
+def _block_inv(blocks: torch.Tensor, jitter: float = 1e-8) -> torch.Tensor:
+    eye = torch.eye(blocks.shape[-1], dtype=blocks.dtype, device=blocks.device)
+    return torch.linalg.solve(blocks + jitter * eye, eye.expand(blocks.shape))
+
+
+def pcg(A, g: VectorValues, Minv, tol: float = 1e-8, max_iters: int = 500) -> VectorValues:
+    """Generic preconditioned CG over VectorValues (PCGSolver's iterative
+    core with a pluggable Preconditioner): A v -> A v (matrix-free
+    operator), g the right-hand side, Minv r -> M^-1 r. From x = 0, JAX's
+    stopping rule: iterate while it < max_iters and r.r > tol^2 g.g."""
+    x = {t: torch.zeros_like(v) for t, v in g.items()}
+    r = g
+    z = Minv(r)
+    p = z
+    rz = _vdot(r, z)
+    limit = tol * tol * _vdot(g, g)
+    it = 0
+    while _cg_continues(it, max_iters, _vdot(r, r), limit):
+        Ap = A(p)
+        alpha = rz / torch.clamp(_vdot(p, Ap), min=1e-30)
+        x = {t: x[t] + alpha * p[t] for t in x}
+        r = {t: r[t] - alpha * Ap[t] for t in r}
+        z = Minv(r)
+        rz_new = _vdot(r, z)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = {t: z[t] + beta * p[t] for t in p}
+        rz = rz_new
+        it += 1
+    return x
+
+
+def pcg_solve(
+    lg: LinearizedGraph,
+    lam=0.0,
+    diagonal_damping: bool = False,
+    tol: float = 1e-10,
+    max_iters: int = 500,
+) -> VectorValues:
+    """Block-Jacobi preconditioned CG on (J^T J + lam*D) delta = J^T b,
+    matrix-free (PCGSolver with BlockJacobiPreconditioner)."""
+    g = gradient(lg)
+    blocks = hessian_block_diagonal(lg)
+    if diagonal_damping:
+        damp = {t: torch.diag_embed(torch.diagonal(b, dim1=-2, dim2=-1)) for t, b in blocks.items()}
+    else:
+        damp = {
+            t: torch.eye(b.shape[-1], dtype=b.dtype, device=b.device).expand(b.shape)
+            for t, b in blocks.items()
+        }
+    Minv = {t: _block_inv(blocks[t] + lam * damp[t]) for t in blocks}
+
+    def A(v):
+        base = hvp(lg, v)
+        return {t: base[t] + lam * torch.einsum("nij,nj->ni", damp[t], v[t]) for t in base}
+
+    def apply_Minv(r):
+        return {t: torch.einsum("nij,nj->ni", Minv[t], r[t]) for t in r}
+
+    return pcg(A, g, apply_Minv, tol, max_iters)

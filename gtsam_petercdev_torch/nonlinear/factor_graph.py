@@ -98,6 +98,9 @@ class LinearizedGraph:
     batches: List[LinearBatch]
     type_counts: Dict[str, int]  # variables per type (delta shapes)
 
+    def flatten_arrays(self):
+        return [(lb.A, lb.b) for lb in self.batches]
+
 
 def _whiten(sqrt_info, r):
     return (sqrt_info @ r[..., None])[..., 0]

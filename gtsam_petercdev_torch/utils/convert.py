@@ -12,7 +12,7 @@ package and the port (the JAX side keeps its factor data as numpy already):
            name, "GeneralSFMFactor" etc. (params: a dict, {"uv": [N, 2]})
 
 This is the one place that carries state across: a JAX `Values` / graph,
-read out as numpy, becomes the port's here.
+or a smart-factor batch, read out as numpy, becomes the port's here.
 """
 
 from __future__ import annotations
@@ -20,13 +20,14 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from gtsam_petercdev_torch.device import DeviceLike
+from gtsam_petercdev_torch.device import DeviceLike, resolve_device, resolve_dtype
 from gtsam_petercdev_torch.geometry.pose3 import Pose3
 from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
 from gtsam_petercdev_torch.nonlinear.values import Values
 from gtsam_petercdev_torch.sfm.bal import SfmCamera
-from gtsam_petercdev_torch.slam import factors, projection
+from gtsam_petercdev_torch.slam import factors, projection, smart
 
 _LAYOUTS = {"Pose3": Pose3, "SfmCamera": SfmCamera}
 _PROJECTION = {
@@ -77,3 +78,30 @@ def graph_from_arrays(
         graph.add_batch(ft, keys, params, sqrt_info)
     return graph
 
+
+
+def smart_batch_from_arrays(
+    cam_rows: np.ndarray,
+    mask: np.ndarray,
+    measured: np.ndarray,
+    cal: np.ndarray,
+    cal_rows=None,
+    stereo: bool = False,
+    params=None,
+    *,
+    device: DeviceLike = "cuda",
+    dtype=None,
+):
+    """The port's SmartProjectionFactorBatch from the numpy arrays of a
+    batch (a JAX `SmartProjectionFactorBatch`'s fields read out with
+    `np.asarray`): cam_rows / mask / cal_rows [T, M], measured [T, M, 2|3],
+    cal [C, 5|6]; measured and cal go to `device` in `dtype` (default
+    float64). params: the port's SmartProjectionParams (default ones)."""
+    dev, dt = resolve_device(device), resolve_dtype(dtype)
+    return smart.SmartProjectionFactorBatch(
+        np.asarray(cam_rows, dtype=np.int32), np.asarray(mask, dtype=bool),
+        torch.as_tensor(np.asarray(measured, dtype=np.float64)).to(dev, dt),
+        torch.as_tensor(np.asarray(cal, dtype=np.float64)).to(dev, dt),
+        params or smart.SmartProjectionParams(),
+        None if cal_rows is None else np.asarray(cal_rows, dtype=np.int32),
+        stereo=stereo)

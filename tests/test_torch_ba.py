@@ -467,7 +467,7 @@ def test_optimize_ba_and_unknown_solver():
     assert res.error < res.error_history[0]
     tg, tv = t_ba.build_ba_graph(data, device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
-        t_opt.levenberg_marquardt(tg, tv, t_opt.LMParams(solver="pcg"), device="cpu")
+        t_opt.levenberg_marquardt(tg, tv, t_opt.LMParams(solver="nope"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_ba.build_ba_graph(data)

@@ -253,8 +253,9 @@ def test_level_router_picks_by_shared_memory(nf, ns, d, itemsize, monkeypatch):
         pool = torch.cat([t_chol.blocks_from_dense(F[None], mb, d).reshape(-1, d * d),
                           torch.zeros(1, d * d, dtype=torch.float64)])
         gp = torch.zeros(B * mb + 1, d, dtype=torch.float64)
-        ext = torch.full((ns * ns,), mb * mb, dtype=torch.int64)
-        extg = torch.full((ns,), mb, dtype=torch.int64)
+        up = lambda a: torch.as_tensor(a, dtype=torch.int64)
+        ext = t_inc._plan_rounds(np.full(ns * ns, mb * mb), mb * mb, up)  # root: all trash
+        extg = t_inc._plan_rounds(np.full(ns, mb), mb, up)
         out = t_inc._level(pool, gp, 0, 0, B, nf, ns, d, ext, extg)
         want = "partial_cholesky_blocks" if route == "blocks" else "partial_cholesky"
         assert calls == [want]
@@ -327,3 +328,50 @@ def test_recorded_isam2_shapes_have_kernel_plans():
                 assert t_chol_v2.k1_plan(B, nf, ns, 3, itemsize).factor_grid == B
     for B, nf, ns, count in rec["wildfire"]:
         assert t_chol_v2.k2_plan(B, nf, ns, 3, 8).grid > 0 and count > 0
+
+
+def test_add_rounds_match_sequential_index_add():
+    """The planned rounds of a scatter-add with repeated destinations (and
+    pads bound for the trash row) give, bit for bit, what one sequential
+    CPU `index_add_` gives, with no duplicate index in any round."""
+    rng = np.random.default_rng(3)
+    n_dest, trash = 40, 40
+    dest = rng.integers(0, n_dest + 1, size=500)  # trash = n_dest, about 1 in 41
+    src = torch.tensor(rng.normal(size=(500, 9)) * 10.0 ** rng.integers(-8, 8, size=(500, 1)))
+    plan = t_inc._plan_rounds(dest, trash, lambda a: torch.as_tensor(a, dtype=torch.int64))
+    assert len(plan.rounds) == np.bincount(dest[dest != trash]).max()
+    for _, d in plan.rounds:
+        assert d.unique().numel() == d.numel() and int(d.max()) < trash
+    got = torch.zeros(n_dest + 1, 9, dtype=torch.float64)
+    t_inc._add_rounds(got, plan, src)
+    want = torch.zeros(n_dest + 1, 9, dtype=torch.float64)
+    keep = torch.as_tensor(dest != trash)
+    want.index_add_(0, torch.as_tensor(dest)[keep], src[keep])
+    assert torch.equal(got, want)
+
+
+def test_city_stream_pool_sums_have_unique_destinations(tmp_path, monkeypatch):
+    """Every pool sum of the engine (factor groups, orphan messages, the
+    identity rows, each level's extend-add) is an `index_add_` with unique
+    destination indices while the 150-line City stream is updated, so the
+    card sums in a fixed order; `index_put_` is not used for sums at all."""
+    lines, _ = synthetic.city_stream(3687, seed=0)
+    path = tmp_path / "city_stream.txt"
+    path.write_text("\n".join(lines[:150]) + "\n")
+    calls = {"index_add_": 0}
+    orig_add, orig_put = torch.Tensor.index_add_, torch.Tensor.index_put_
+
+    def index_add_(self, dim, index, source, **kw):
+        calls["index_add_"] += 1
+        assert index.unique().numel() == index.numel(), "duplicate destination in index_add_"
+        return orig_add(self, dim, index, source, **kw)
+
+    def index_put_(self, indices, values, accumulate=False):
+        assert not accumulate, "index_put_(accumulate=True) in the engine"
+        return orig_put(self, indices, values, accumulate)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", index_add_)
+    monkeypatch.setattr(torch.Tensor, "index_put_", index_put_)
+    r = t_city.run_city10000(str(path), device="cpu")
+    assert len(r.updates) == 150 and calls["index_add_"] > 1000
+    assert all(np.isfinite(r.estimate).ravel())
