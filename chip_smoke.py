@@ -11,6 +11,10 @@
     python3 chip_smoke.py --smart-only    phases 1-2, then phase 7; no result line
     python3 chip_smoke.py --optimizers-only  phases 1-2, the sphere's plans, then
                                           phase 8; no result line
+    python3 chip_smoke.py --isam2-family-only  phases 1-2, the iSAM2 path's d = 3
+                                          shapes of phase 3, then phase 9 (after
+                                          an unprofiled run c) of phase 6); no
+                                          result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -66,7 +70,8 @@ a result line:
              re-eliminated cliques, peak device memory, ATE against the
              stream's ground truth, the final error beside a batch GN of the
              final graph from the iSAM2 estimate; gates: finite errors, no
-             bad pivots, K2 and K4 launched
+             bad pivots, K2 and K4 launched; it saves the whole ISAM2 every
+             450 lines (the last save holds line 1,350: phase 9 d))
   7. smart   smart-factor BA through smart_levenberg_marquardt (dense
              library algebra, no bucket kernel, as in the JAX package): a
              ragged 20-camera / 500-track rig with a behind-camera and a
@@ -89,7 +94,31 @@ a result line:
              1e-6); factor / apply = solve (rel 1e-10) and the log-determinant
              = slogdet (rel 1e-10); NCG's error falls in 50 iterations on a
              20-pose graph
-  9. result  a `kernels` JSON line, the card line, then the last line
+  9. iSAM2 family  float64 unless stated, right after phase 6 on its tree
+             and stream: a) on the stream's first 150 lines, card = CPU path:
+             every pose's tree covariance (rel 1e-9), run_city10000_fixed_lag
+             at lag 50 (identical marginalized and deferred keys in every
+             update, window estimates rel 1e-9), a checkpoint at line 100
+             resumed to 150 bitwise equal on each device; b) run c)'s final
+             tree (1,086 poses): TreeMarginals of every pose against H's
+             exact inverse and against dense Marginals with its 1e-10 jitter's
+             first-order term added back (both <= 1e-8 x the largest entry),
+             the sweep's ms, launches and device time, adjacent poses sharing
+             a clique; c) fixed lag 100 poses over 1,000 lines (loop closures
+             to marginalized poses dropped): per-update ms split into
+             ISAM2.update and marginalize_leaves, live cliques (gate: at most
+             the window's variables), launches per update, the window against
+             a batch GN of the kept history; d) run c)'s checkpoint at line
+             1,350 loaded onto the card and fed to line 1,500: bitwise run
+             c)'s estimate, the file's bytes, save and load ms; e) the
+             concurrent incremental pair against the batch pair over 60
+             lines, lag 15, a synchronize every 15 updates (5e-3); f)
+             NonlinearISAM over 40 lines, reorder interval 10, within 1e-6
+             of a batch GN of its graph; g) float32 iSAM2 over 300 lines:
+             finite, ATE within 10% of float64's, bad pivots, ms, launches;
+             h) K4 / K1 / K2 against their plain versions at every shape
+             they took in b)-g)
+ 10. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -150,6 +179,32 @@ CITY_GATE_LINES = 150
 ROUNDING_CHANGE = 1e-12
 CONTRACT_POSES = 60
 PROFILE_UPDATES = 50
+# run c) saves the whole ISAM2 at every CITY_PROGRESS lines: its last save
+# holds line 1,350, from which phase 9 d) resumes to CITY_LINES
+CITY_PROGRESS = 450
+# phase 9 (the iSAM2 family, float64 unless stated), on the same stream: a)
+# card = CPU over FAMILY_GATE_LINES lines (fixed lag FAMILY_GATE_LAG poses,
+# a checkpoint at FAMILY_GATE_CKPT); c) fixed-lag smoothing over
+# FIXED_LAG_LINES lines, lag FIXED_LAG poses; e) the concurrent pairs over
+# CONCURRENT_LINES lines, lag CONCURRENT_LAG, a synchronize every
+# CONCURRENT_SYNC updates; f) NonlinearISAM over NISAM_LINES lines, reorder
+# interval NISAM_REORDER; g) float32 iSAM2 over F32_LINES lines. e), f) and
+# g) are cut for the script's time (from 300 lines at lag 50 and a
+# synchronize every 25, 200 and 500 lines): the batch filter, the batch
+# smoother and NonlinearISAM hold one factor batch per update, and each
+# linearization walks them all: their time grows with the stream's length
+# (PERF.md section 4)
+FAMILY_GATE_LINES = 150
+FAMILY_GATE_LAG = 50
+FAMILY_GATE_CKPT = 100
+FIXED_LAG_LINES = 1000
+FIXED_LAG = 100
+CONCURRENT_LINES = 60
+CONCURRENT_LAG = 15
+CONCURRENT_SYNC = 15
+NISAM_LINES = 40
+NISAM_REORDER = 10
+F32_LINES = 300
 # the d = 3 bucket shapes of that run's level steps and wildfire rounds, as
 # tools/bench_bucket_shapes.py wrote them
 ISAM2_SHAPES = "tests/data/isam2_bucket_shapes.json"
@@ -289,12 +344,13 @@ def max_err(got, ref, keys, tol, what):
     return worst
 
 
-def check_kernels(torch, mods, cases, timed, extras=True):
+def check_kernels(torch, mods, cases, timed, extras=True, errs_out=None):
     """Hold the four kernels against their plain versions at every case
     (B, nf, ns, d) and time them. timed: dtype name -> kernel name -> the
     cases of one sweep (the buckets the routing gives that kernel in the two
     bench plans, each once, in plan order). extras: the indefinite buckets
-    and the library composites too."""
+    and the library composites too. errs_out: a dict that gets each dtype's
+    largest differences by kernel."""
     v2, v1, kernels = mods
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     res = {k: {} for k in KERNELS}
@@ -329,6 +385,8 @@ def check_kernels(torch, mods, cases, timed, extras=True):
                 v1.partial_cholesky_blocks_plain(Fb, gb, nf, ns, d),
                 ("L", "Linv", "W", "y", "U_blocks", "ug_blocks"), TOL[name], "K4 " + what))
         torch.cuda.synchronize()
+        if errs_out is not None:
+            errs_out[name] = dict(errs)
 
         # indefinite buckets: clamped pivots counted identically by the plain
         # version and all three factor kernels, the bad pivot in the first
@@ -900,8 +958,10 @@ def run_isam2(torch, here, v1):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     v1.reset_launch_counts()
+    ckpt = checkpoint_path(here)
     t0 = time.perf_counter()
-    res = run_city10000(path, device="cuda", progress_every=500, step_cb=step_cb)
+    res = run_city10000(path, device="cuda", progress_every=CITY_PROGRESS, step_cb=step_cb,
+                        checkpoint_path=ckpt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, cuda_launches = v1.launch_counts(), v1.cuda_launch_counts()
@@ -972,6 +1032,524 @@ def run_isam2(torch, here, v1):
                              f"launches {launches}")
     if not (np.isfinite(res.estimate).all() and res.estimate.shape == (res.n_poses, 3)):
         raise AssertionError("iSAM2 run c) estimate is not finite poses")
+    return out, dict(isam=isam, estimate=res.estimate, checkpoint=ckpt, path=path)
+
+
+# --- phase 9: the iSAM2 family ---------------------------------------------------------
+
+
+def checkpoint_path(here):
+    path = os.path.join(here, "gtsam_petercdev_torch", "_build", "city_isam2.ckpt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path
+
+
+def remove_checkpoints(here):
+    """Delete the ISAM2 checkpoints the run wrote into the build directory
+    (phase 6 c)'s holds ~225 MB), whether the run passed or not."""
+    build = os.path.join(here, "gtsam_petercdev_torch", "_build")
+    if os.path.isdir(build):
+        for name in os.listdir(build):
+            if name.endswith(".ckpt"):
+                os.remove(os.path.join(build, name))
+
+
+class ShapeRecorder:
+    """Every (B, nf, ns, d, dtype) the engine's level steps (K4 or K1, by
+    `level_route`) and wildfire rounds (K2) launch while the context is
+    open, by kernel."""
+
+    def __enter__(self):
+        from gtsam_petercdev_torch.inference import incremental as inc
+
+        self.inc, self.saved = inc, (inc._level, inc._wild)
+        self.shapes = {"partial_cholesky_blocks": set(), "partial_cholesky": set(),
+                       "backsolve_bucket": set()}
+        level, wild = self.saved
+
+        def recorded_level(pool, gp, boff, goff, B, nf, ns, d, *rest):
+            route = inc.level_route(nf, ns, d, pool.element_size())
+            k = "partial_cholesky_blocks" if route == "blocks" else "partial_cholesky"
+            self.shapes[k].add((B, nf, ns, d, str(pool.dtype).split(".")[1]))
+            return level(pool, gp, boff, goff, B, nf, ns, d, *rest)
+
+        def recorded_wild(pc, rows, sep_idx, fro_idx, x, nf, ns, d):
+            self.shapes["backsolve_bucket"].add((rows.shape[0], nf, ns, d,
+                                                 str(x.dtype).split(".")[1]))
+            return wild(pc, rows, sep_idx, fro_idx, x, nf, ns, d)
+
+        inc._level, inc._wild = recorded_level, recorded_wild
+        return self
+
+    def __exit__(self, *exc):
+        self.inc._level, self.inc._wild = self.saved
+
+
+class SyncedTimer:
+    """Host wall time of named methods, sync() (the card's synchronize) on
+    both sides of each call, summed into the slot that `next()` opened."""
+
+    def __init__(self, sync, targets):
+        self.sync, self.targets, self.saved, self.slots = sync, targets, [], []
+
+    def next(self):
+        self.slots.append({})
+
+    def __enter__(self):
+        sync = self.sync
+        for name, owner, attr in self.targets:
+            fn = owner.__dict__[attr]
+            self.saved.append((owner, attr, fn))
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                sync()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                sync()
+                slot = self.slots[-1] if self.slots else {}
+                slot[_name] = slot.get(_name, 0.0) + (time.perf_counter() - t0) * 1e3
+                return out
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+
+
+def stats_ms(xs):
+    import numpy as np
+
+    a = np.asarray(xs, dtype=float)
+    return dict(mean=float(a.mean()), p50=float(np.percentile(a, 50)),
+                p99=float(np.percentile(a, 99)), max=float(a.max()))
+
+
+def tangent_gaps(torch, a, b):
+    """||local(a_i, b_i)|| per row of two [n, 3] Pose2 arrays."""
+    from gtsam_petercdev_torch.geometry import pose2
+
+    d = pose2.local(torch.as_tensor(a, dtype=torch.float64), torch.as_tensor(b, dtype=torch.float64))
+    return d.norm(dim=1).numpy()
+
+
+def add_city_factor(graph, keyS, keyT, meas):
+    """One city stream line's between factor at the harness's noise models
+    (odometry sigmas (1/30, 1/30, 1/100), loop closures 10)."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.linear import noise
+    from gtsam_petercdev_torch.slam.factors import between_factor
+
+    sig = [1 / 30.0, 1 / 30.0, 1 / 100.0] if keyS == keyT - 1 else [10.0] * 3
+    graph.add(between_factor("Pose2"), [keyS, keyT], np.asarray(meas[0]),
+              noise.diagonal_sigmas(np.asarray(sig)))
+
+
+def city_graph(torch, path, applied, dev):
+    """The prior and the lines `applied` (indices) of a city stream file as
+    a graph."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.linear import noise
+    from gtsam_petercdev_torch.models.city10000 import parse_city10000
+    from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
+    from gtsam_petercdev_torch.slam.factors import prior_factor
+
+    g = NonlinearFactorGraph(device=dev)
+    g.add(prior_factor("Pose2"), [0], np.zeros(3), noise.diagonal_sigmas(np.full(3, 1e-4)))
+    parsed = parse_city10000(path, None)
+    for i in applied:
+        add_city_factor(g, *parsed[i])
+    return g
+
+
+def pose_values(torch, keys, poses, dev):
+    from gtsam_petercdev_torch.nonlinear.values import Values
+
+    v = Values(device=dev)
+    v.insert_batch(list(keys), "Pose2", torch.as_tensor(poses, dtype=torch.float64))
+    return v
+
+
+def pose_array(values, keys):
+    import numpy as np
+
+    rows = np.asarray([values.row_of(k) for k in keys], dtype=np.int64)
+    return values.params("Pose2").cpu().numpy()[rows]
+
+
+def run_concurrent(torch, path, incremental, dev):
+    """The concurrent pair over a city stream file: new poses from the
+    filter's estimate composed with the odometry, timestamps = pose index,
+    a loop closure to a pose more than CONCURRENT_LAG behind the newest
+    dropped (it would not be in the filter), a synchronize every
+    CONCURRENT_SYNC updates. Returns (filter, smoother, ms per filter
+    update, ms per synchronize, loop closures dropped)."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.geometry import pose2
+    from gtsam_petercdev_torch.models.city10000 import parse_city10000
+    from gtsam_petercdev_torch.nonlinear import concurrent as cc
+    from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
+    from gtsam_petercdev_torch.nonlinear.isam2 import ISAM2Params
+    from gtsam_petercdev_torch.nonlinear.values import Values
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    if incremental:
+        ip = lambda: ISAM2Params(relinearize_threshold=1e-4, relinearize_skip=1)
+        filt = cc.ConcurrentIncrementalFilter(CONCURRENT_LAG, ip(), device=dev)
+        smoother = cc.ConcurrentIncrementalSmoother(ip(), device=dev)
+        synchronize = cc.synchronize_incremental
+        at = lambda k: filt.isam.calculate_estimate_key(k)
+    else:
+        filt = cc.ConcurrentBatchFilter(CONCURRENT_LAG, device=dev)
+        smoother = cc.ConcurrentBatchSmoother(device=dev)
+        synchronize = cc.synchronize
+        at = lambda k: filt.values.at(k)
+    filt.update(city_graph(torch, path, [], dev), pose_values(torch, [0], np.zeros((1, 3)), dev),
+                {0: 0.0})
+    upd_ms, sync_ms, dropped, newest, n = [], [], 0, 0, 0
+    for keyS, keyT, meas in parse_city10000(path, None):
+        g, v = NonlinearFactorGraph(device=dev), Values(device=dev)
+        odom = torch.as_tensor(meas[0], dtype=torch.float64, device=dev)
+        stamps = None
+        if keyS == keyT - 1:
+            v.insert(keyT, "Pose2", pose2.compose(at(keyS), odom))
+            stamps, newest = {keyT: float(keyT)}, keyT
+        elif min(keyS, keyT) < newest - CONCURRENT_LAG:
+            dropped += 1
+            continue
+        add_city_factor(g, keyS, keyT, meas)
+        sync()
+        t0 = time.perf_counter()
+        filt.update(g, v, stamps)
+        sync()
+        upd_ms.append((time.perf_counter() - t0) * 1e3)
+        n += 1
+        if n % CONCURRENT_SYNC == 0:
+            t0 = time.perf_counter()
+            synchronize(filt, smoother)
+            sync()
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+    return filt, smoother, upd_ms, sync_ms, dropped
+
+
+def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
+    """Phase 9: the iSAM2 family (leaf marginalization, Bayes-tree
+    marginals, fixed-lag and concurrent smoothing, NonlinearISAM, engine
+    checkpoints, a float32 run). `city`: phase 6 c)'s final tree, its
+    estimate and its checkpoint at line 1,350; without it (the
+    --isam2-family-only run) that run is made here, unprofiled. `dev`: the
+    device of every path but a)'s CPU reference (a rehearsal passes "cpu")."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.inference.treemarg import TreeMarginals
+    from gtsam_petercdev_torch.linear import solve as linsolve
+    from gtsam_petercdev_torch.models.city10000 import (
+        parse_city10000, run_city10000, run_city10000_fixed_lag)
+    from gtsam_petercdev_torch.nonlinear import isam2 as isam2_mod
+    from gtsam_petercdev_torch.nonlinear.marginals import Marginals
+    from gtsam_petercdev_torch.nonlinear.nonlinear_isam import NonlinearISAM
+    from gtsam_petercdev_torch.nonlinear.optimizers import OptimizerParams, gauss_newton
+    from gtsam_petercdev_torch.utils import serialization, synthetic
+
+    lines, gt = synthetic.city_stream(CITY_POSES, seed=SEED)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    out = {}
+    counts = lambda: dict(v1.launch_counts())
+    diff = lambda a, b: {k: b[k] - a[k] for k in a}
+    if city is None:
+        path = write_stream(here, lines, CITY_LINES)
+        hold = {}
+        ckpt = checkpoint_path(here)
+        res = run_city10000(path, device=dev, progress_every=CITY_PROGRESS, checkpoint_path=ckpt,
+                            step_cb=lambda k, isam: hold.__setitem__("isam", isam))
+        city = dict(isam=hold["isam"], estimate=res.estimate, checkpoint=ckpt, path=path)
+    v1.reset_launch_counts()
+    with ShapeRecorder() as rec:
+        # a) the card against the CPU path: tree marginals, fixed-lag
+        # smoothing, a checkpoint resumed bitwise on each device
+        t0 = time.perf_counter()
+        path = write_stream(here, lines, FAMILY_GATE_LINES)
+        ck = os.path.join(os.path.dirname(path), "family_gate.ckpt")
+        got = {}
+        for d in (dev, "cpu"):
+            hold = {}
+            full = run_city10000(path, device=d, progress_every=FAMILY_GATE_CKPT, checkpoint_path=ck,
+                                 step_cb=lambda k, isam: hold.__setitem__("isam", isam))
+            resumed = run_city10000(path, device=d, resume_from=ck)
+            isam = hold["isam"]
+            tm = TreeMarginals(isam.engine)
+            covs = torch.stack([tm.covariance_gid(isam._key_gid[k])[:3, :3]
+                                for k in range(full.n_poses)]).cpu().numpy()
+            fl = run_city10000_fixed_lag(path, FAMILY_GATE_LAG, device=d)
+            got[d] = dict(covs=covs, fl=fl, resume_bitwise=bool(np.array_equal(
+                resumed.estimate, full.estimate)))
+        a, b = got[dev], got["cpu"]
+        cov_rel = float(np.abs(a["covs"] - b["covs"]).max() / np.abs(b["covs"]).max())
+        fa, fb = a["fl"], b["fl"]
+        same_lists = fa.marginalized == fb.marginalized and fa.deferred == fb.deferred
+        fl_rel = (float(np.abs(fa.estimate - fb.estimate).max() / np.abs(fb.estimate).max())
+                  if fa.keys == fb.keys else float("inf"))
+        out["a"] = dict(cov_rel=cov_rel, fixed_lag_lists_equal=same_lists, fixed_lag_rel=fl_rel,
+                        resume_bitwise={d: got[d]["resume_bitwise"] for d in got},
+                        marginalized=sum(map(len, fb.marginalized)),
+                        deferred_events=sum(map(len, fb.deferred)), dropped=fb.n_dropped)
+        log(f"family a) {FAMILY_GATE_LINES} lines, card vs CPU: every pose's tree covariance rel "
+            f"{cov_rel:.3e}; fixed lag {FAMILY_GATE_LAG}: marginalized and deferred lists "
+            f"identical in every update {same_lists} ({out['a']['marginalized']} keys marginalized, "
+            f"{out['a']['deferred_events']} deferrals, {fb.n_dropped} loop closures dropped), window "
+            f"estimates rel {fl_rel:.3e}; checkpoint at line {FAMILY_GATE_CKPT} resumed to "
+            f"{FAMILY_GATE_LINES} bitwise equal (card, CPU): "
+            f"{[got[d]['resume_bitwise'] for d in got]} ({time.perf_counter() - t0:.1f} s)")
+        if not (cov_rel <= 1e-9 and same_lists and fl_rel <= 1e-9
+                and all(g["resume_bitwise"] for g in got.values())):
+            raise AssertionError("family a): the card and the CPU path disagree")
+        del got
+
+        # b) marginals at full width: every pose of run c)'s final tree, the
+        # top-down sweep against dense Marginals of its graph at theta
+        isam = city["isam"]
+        keys = sorted(k for k in isam._key_gid)
+        sweep = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            tm = TreeMarginals(isam.engine)
+            sync()
+            sweep.append((time.perf_counter() - t0) * 1e3)
+        sweep_launches = sweep_dev_ms = None
+        if dev == "cuda":
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                TreeMarginals(isam.engine)
+                sync()
+            kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            sweep_launches = sum(e.count for e in kern)
+            sweep_dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        tree = torch.stack([tm.covariance_gid(isam._key_gid[k])[:3, :3] for k in keys])
+        sync()
+        t0 = time.perf_counter()
+        graph, theta = isam._as_graph(), isam.theta
+        dense = Marginals(graph, theta, device=dev)
+        dcov = torch.stack(dense.batch_marginal_covariances(keys))
+        sync()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        # Marginals(method="dense") factors H + 1e-10 I (the JAX package's
+        # jitter), which moves Sigma by -1e-10 Sigma^2 to first order: at
+        # these conditionings (prior information 1e8, covariances to ~1e2)
+        # more than 1e-8 of the largest entry. So the gate's oracle is H's
+        # exact inverse (one Cholesky, no jitter), and the class is held to
+        # the tree once its jitter's first-order term is added back
+        H, _ = linsolve.assemble_dense(graph.linearize(theta))
+        S = torch.cholesky_inverse(torch.linalg.cholesky(H))
+        idx = torch.as_tensor(np.stack([np.arange(dense._slice(k)[0], dense._slice(k)[0] + 3)
+                                        for k in keys]), device=S.device)
+        rows = lambda M: M[idx[:, :, None], idx[:, None, :]]
+        exact, bias = rows(S), 1e-10 * rows(S @ S)
+        scale = exact.abs().max().item()
+        err = (tree - exact).abs().max().item()
+        err_class = (tree - (dcov + bias)).abs().max().item()
+        raw = (tree - dcov).abs().max().item()
+        adj = sum(tm.joint_gids([isam._key_gid[k], isam._key_gid[k + 1]]) is not None
+                  for k in keys[:-1])
+        out["b"] = dict(poses=len(keys), cliques=isam.engine.n_live, sweep_ms=min(sweep),
+                        sweep_ms_first=sweep[0], sweep_steps=tm.n_steps,
+                        sweep_cuda_launches=sweep_launches, sweep_device_ms=sweep_dev_ms,
+                        dense_ms=dense_ms, max_abs_err=err, max_abs_err_marginals_class=err_class,
+                        max_abs_diff_marginals_class_raw=raw, largest_cov=scale,
+                        adjacent_joints_in_one_clique=adj)
+        log(f"family b) marginals of {len(keys)} poses on run c)'s tree ({isam.engine.n_live} "
+            f"cliques): tree sweep {min(sweep):.3f} ms (first {sweep[0]:.3f}), {tm.n_steps} "
+            f"batched steps, {sweep_launches} CUDA launches, device ms {sweep_dev_ms}, no "
+            f"bucket kernel; dense Marginals {dense_ms:.3f} ms; the largest covariance entry "
+            f"{scale:.3e}; max abs difference tree vs H's exact inverse {err:.3e}, vs dense "
+            f"Marginals with its jitter's first-order term added back {err_class:.3e} (gates <= "
+            f"1e-8 x the largest entry), vs dense Marginals as it is {raw:.3e}; adjacent pose "
+            f"pairs sharing a clique scope {adj} of {len(keys) - 1}")
+        if not (err <= 1e-8 * scale and err_class <= 1e-8 * scale):
+            raise AssertionError("family b): tree and dense marginals disagree")
+        del tm, dense, tree, dcov, H, S, exact, bias
+
+        # c) fixed-lag smoothing on the card, lag FIXED_LAG poses
+        path = write_stream(here, lines, FIXED_LAG_LINES)
+        timer = SyncedTimer(sync, [("update", isam2_mod.ISAM2, "update"),
+                                    ("marginalize", isam2_mod.ISAM2, "marginalize_leaves")])
+        c0 = counts()
+        t0 = time.perf_counter()
+        with timer:
+            fl = run_city10000_fixed_lag(path, FIXED_LAG, device=dev,
+                                         step_cb=lambda k, sm: timer.next())
+        wall = time.perf_counter() - t0
+        c1 = counts()
+        n_up = len(fl.step_times)
+        launches = diff(c0, c1)
+        kept = parse_city10000(path, None)
+        g = city_graph(torch, path, fl.applied, dev)
+        v = pose_values(torch, range(fl.n_poses), gt[: fl.n_poses], dev)
+        gn = gauss_newton(g, v, OptimizerParams(solver="multifrontal", max_iterations=10),
+                          device=dev)
+        gaps = tangent_gaps(torch, fl.estimate, pose_array(gn.values, fl.keys))
+        max_def = max(map(len, fl.deferred))
+        out["c"] = dict(
+            lines=len(kept), updates=n_up, poses=fl.n_poses, loops=fl.n_loop_closures,
+            dropped=fl.n_dropped, wall_s=wall,
+            ms=stats_ms([1e3 * t for t in fl.step_times]),
+            update_ms=stats_ms([s.get("update", 0.0) for s in timer.slots]),
+            marginalize_ms=stats_ms([s.get("marginalize", 0.0) for s in timer.slots]),
+            live_cliques_max=max(fl.live_cliques), window_keys=len(fl.keys),
+            deferred_max=max_def, deferrals=sum(map(len, fl.deferred)),
+            marginalized=sum(map(len, fl.marginalized)),
+            launches=launches, launches_per_update={k: x / n_up for k, x in launches.items()},
+            batch_gn_gap_max=float(gaps.max()), batch_gn_gap_mean=float(gaps.mean()),
+            batch_gn_history=gn.error_history)
+        c = out["c"]
+        log(f"family c) fixed lag {FIXED_LAG} poses over {len(kept)} lines ({fl.n_poses} poses, "
+            f"{fl.n_loop_closures} loop closures fed, {fl.n_dropped} dropped: older pose already "
+            f"marginalized) in {wall:.1f} s: per update ms mean {c['ms']['mean']:.3f} p50 "
+            f"{c['ms']['p50']:.3f} p99 {c['ms']['p99']:.3f} max {c['ms']['max']:.3f}; of it "
+            f"ISAM2.update {c['update_ms']['mean']:.3f} (p99 {c['update_ms']['p99']:.3f}) and "
+            f"marginalize_leaves {c['marginalize_ms']['mean']:.3f} (p99 "
+            f"{c['marginalize_ms']['p99']:.3f}) (synchronized timers); live cliques max "
+            f"{c['live_cliques_max']}; deferred keys max {max_def}, {c['deferrals']} deferrals; "
+            f"{c['marginalized']} keys marginalized; launches per update "
+            f"{ {k: round(x, 3) for k, x in c['launches_per_update'].items()} }")
+        log(f"family c) window of {len(fl.keys)} poses against a batch GN of the whole kept "
+            f"history (multifrontal, card, from the stream's truth: "
+            f"{['%.6e' % e for e in gn.error_history]}): tangent distance max {gaps.max():.3e} "
+            f"mean {gaps.mean():.3e} (the JAX test's bound on its chain: 1e-3)")
+        finite = bool(np.isfinite(fl.estimate).all())
+        if not (finite and max(fl.live_cliques) <= FIXED_LAG + 1 + max_def
+                and launches["backsolve_bucket"] > 0):
+            raise AssertionError(f"family c): live cliques {max(fl.live_cliques)}, finite {finite}, "
+                                 f"launches {launches}")
+        del fl, g, v, gn
+
+        # d) phase 6 c)'s checkpoint at line 1,350, onto the card, fed to
+        # the end: bitwise the uninterrupted run
+        ck = city["checkpoint"]
+        sync()
+        t0 = time.perf_counter()
+        loaded = serialization.load_isam2(ck, device=dev)
+        sync()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        serialization.save_isam2(ck, loaded)  # the loaded state, saved anew and resumed below
+        save_ms = (time.perf_counter() - t0) * 1e3
+        done = loaded._update_count - 1
+        del loaded
+        resumed = run_city10000(city["path"], device=dev, resume_from=ck)
+        same = bool(np.array_equal(resumed.estimate, city["estimate"]))
+        out["d"] = dict(checkpoint_line=done, bytes=os.path.getsize(ck), save_ms=save_ms,
+                        load_ms=load_ms, resumed_updates=len(resumed.updates), bitwise=same)
+        log(f"family d) checkpoint at line {done} ({os.path.getsize(ck)} bytes; save {save_ms:.1f} "
+            f"ms, load onto the card {load_ms:.1f} ms) resumed for {len(resumed.updates)} lines: "
+            f"final estimate bitwise equal to run c)'s {same}")
+        if not same:
+            raise AssertionError("family d): the resumed run differs from the uninterrupted one")
+
+        # e) the concurrent pairs on the card, incremental against batch
+        path = write_stream(here, lines, CONCURRENT_LINES)
+        e0 = counts()
+        fi, si, upd_i, sync_i, dropped = run_concurrent(torch, path, True, dev)
+        e1 = counts()
+        fb, sb, upd_b, sync_b, _ = run_concurrent(torch, path, False, dev)
+        sep = set(si.separator)
+        win = [k for k in fi.values.keys() if k in fb.values and k not in sep]
+        hist = [k for k in si.values.keys() if k in sb.values]
+        gap_f = tangent_gaps(torch, pose_array(fi.values, win), pose_array(fb.values, win))
+        gap_s = tangent_gaps(torch, pose_array(si.values, hist), pose_array(sb.values, hist))
+        worst = float(max(gap_f.max(), gap_s.max()))
+        out["e"] = dict(filter_update_ms=stats_ms(upd_i), synchronize_ms=stats_ms(sync_i),
+                        batch_filter_update_ms=stats_ms(upd_b), batch_synchronize_ms=stats_ms(sync_b),
+                        dropped=dropped, window=len(win), history=len(hist), max_gap=worst,
+                        launches=diff(e0, e1))
+        log(f"family e) concurrent pairs over {CONCURRENT_LINES} lines, lag {CONCURRENT_LAG}, a "
+            f"synchronize every {CONCURRENT_SYNC} updates ({dropped} loop closures dropped): "
+            f"incremental filter update ms mean {np.mean(upd_i):.3f} p99 "
+            f"{np.percentile(upd_i, 99):.3f}, synchronize mean {np.mean(sync_i):.3f}; batch filter "
+            f"update mean {np.mean(upd_b):.3f}, synchronize mean {np.mean(sync_b):.3f}; incremental "
+            f"against batch: {len(win)} window and {len(hist)} history poses, largest tangent gap "
+            f"{worst:.3e} (gate 5e-3); launches {diff(e0, e1)}")
+        if not worst <= 5e-3:
+            raise AssertionError("family e): the incremental pair differs from the batch pair")
+        del fi, si, fb, sb
+
+        # f) NonlinearISAM against a batch GN of its graph
+        from gtsam_petercdev_torch.geometry import pose2
+        from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
+
+        nis = NonlinearISAM(NISAM_REORDER, device=dev)
+        nis.update(city_graph(torch, path, [], dev), pose_values(torch, [0], np.zeros((1, 3)), dev))
+        t0 = time.perf_counter()
+        for keyS, keyT, meas in parse_city10000(path, NISAM_LINES):
+            g = NonlinearFactorGraph(device=dev)
+            add_city_factor(g, keyS, keyT, meas)
+            new = ([], np.zeros((0, 3)))
+            if keyS == keyT - 1:
+                x = pose2.compose(nis.estimate().at(keyS),
+                                  torch.as_tensor(meas[0], dtype=torch.float64, device=dev))
+                new = ([keyT], x[None].cpu().numpy())
+            nis.update(g, pose_values(torch, *new, dev))
+        sync()
+        nis_s = time.perf_counter() - t0
+        est = nis.estimate()
+        nkeys = sorted(est.keys())
+        gn = gauss_newton(nis.factors, est, OptimizerParams(max_iterations=20), device=dev)
+        gaps = tangent_gaps(torch, pose_array(est, nkeys), pose_array(gn.values, nkeys))
+        out["f"] = dict(lines=NISAM_LINES, poses=len(nkeys), seconds=nis_s, max_gap=float(gaps.max()),
+                        batch_gn_history=gn.error_history)
+        log(f"family f) NonlinearISAM, reorder interval {NISAM_REORDER}, over {NISAM_LINES} lines "
+            f"({len(nkeys)} poses) in {nis_s:.1f} s: against a batch GN of its graph "
+            f"({['%.6e' % e for e in gn.error_history]}) tangent distance max {gaps.max():.3e} "
+            f"(gate 1e-6)")
+        if not gaps.max() <= 1e-6:
+            raise AssertionError("family f): NonlinearISAM ends away from the batch optimum")
+
+        # g) float32 iSAM2 against the float64 run over the same lines
+        path = write_stream(here, lines, F32_LINES)
+        g0 = counts()
+        r32 = run_city10000(path, device=dev, dtype=torch.float32)
+        sync()
+        g1 = counts()
+        r64 = run_city10000(path, device=dev)
+        ate32, ate64 = r32.ate_rmse(gt), r64.ate_rmse(gt)
+        bad32 = int(sum(int(u.bad_pivots) for u in r32.updates))
+        launches = diff(g0, g1)
+        out["g"] = dict(lines=F32_LINES, ate_f32=ate32, ate_f64=ate64, bad_pivots=bad32,
+                        ms=stats_ms([1e3 * t for t in r32.step_times]),
+                        ms_f64=stats_ms([1e3 * t for t in r64.step_times]),
+                        launches_per_update={k: x / len(r32.updates) for k, x in launches.items()},
+                        max_pose_gap_to_f64=float(np.abs(r32.estimate - r64.estimate).max()))
+        log(f"family g) float32 iSAM2 over {F32_LINES} lines: ATE {ate32:.6f} against float64 "
+            f"{ate64:.6f} (gate within 10%); bad pivots {bad32}; per update ms mean "
+            f"{out['g']['ms']['mean']:.3f} p99 {out['g']['ms']['p99']:.3f} (float64 "
+            f"{out['g']['ms_f64']['mean']:.3f}); launches per update "
+            f"{ {k: round(x, 3) for k, x in out['g']['launches_per_update'].items()} }; largest "
+            f"pose difference to float64 {out['g']['max_pose_gap_to_f64']:.3e}")
+        if not (np.isfinite(r32.estimate).all() and abs(ate32 - ate64) <= 0.1 * ate64):
+            raise AssertionError("family g): the float32 run is not finite or its ATE is off")
+        out["launches"] = counts()  # b)-g) and a)'s card runs: reset before a)
+
+    # h) the three kernels at every shape they took in b)-g), against their
+    # plain versions (phase 3's checks and tolerances)
+    from gtsam_petercdev_torch.inference import kernels
+    from gtsam_petercdev_torch.ops import cholesky_v2 as v2
+
+    cases = sorted({s[:4] for shapes in rec.shapes.values() for s in shapes})
+    errs = {}
+    t0 = time.perf_counter()
+    check_kernels(torch, (v2, v1, kernels), cases, {"float64": {}, "float32": {}}, extras=False,
+                  errs_out=errs)
+    out["h"] = dict(shapes={k: len(v) for k, v in rec.shapes.items()}, distinct=len(cases),
+                    max_abs_err=errs)
+    log(f"family h) {len(cases)} distinct (B, nf, ns, d) shapes of K4 / K1 / K2 in b)-g) "
+        f"({out['h']['shapes']} with dtype), each kernel against its plain version in float64 "
+        f"and float32: max abs err {errs} ({time.perf_counter() - t0:.1f} s)")
     return out
 
 
@@ -1361,6 +1939,7 @@ def main():
     isam2_only = "--isam2-only" in sys.argv[1:]
     smart_only = "--smart-only" in sys.argv[1:]
     optimizers_only = "--optimizers-only" in sys.argv[1:]
+    family_only = "--isam2-family-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -1416,12 +1995,16 @@ def main():
         log(f"smart-only run passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    if isam2_only:
+    if isam2_only or family_only:
         # a check of this path alone: its kernels at their d = 3
-        # shapes, then phase 6; no result line
+        # shapes, then phase 6 or phase 9; no result line
         check_kernels(torch, (v2, v1, kernels), isam2_cases, isam2_timed, extras=False)
-        run_isam2(torch, here, v1)
-        log(f"iSAM2-only run passed in {time.perf_counter() - t_start:.1f} s")
+        if isam2_only:
+            run_isam2(torch, here, v1)
+        else:
+            run_isam2_family(torch, here, v1)
+        log(f"iSAM2{'' if isam2_only else ' family'}-only run passed in "
+            f"{time.perf_counter() - t_start:.1f} s on {card}")
         return 0
 
     if kernels_only:
@@ -1756,8 +2339,13 @@ def main():
     log(f"BA phases done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. the iSAM2 path (float64), through run_city10000 / ISAM2.update
-    isam2 = run_isam2(torch, here, v1)
+    isam2, city = run_isam2(torch, here, v1)
     log(f"iSAM2 phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # 9. the iSAM2 family on run c)'s tree and stream (while they live)
+    family = run_isam2_family(torch, here, v1, city)
+    del city
+    log(f"iSAM2 family phase done at {time.perf_counter() - t_start:.1f} s")
 
     # 7. smart-factor BA (no bucket kernel on its path: dense library algebra,
     # as in the JAX package)
@@ -1766,7 +2354,7 @@ def main():
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 9. result lines
+    # 10. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
@@ -1782,7 +2370,8 @@ def main():
                                  buckets=r["buckets_timed"])
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname] + isam2["launches"][kname] + mixed_launches[kname],
+            launches=(launches[kname] + isam2["launches"][kname] + mixed_launches[kname]
+                      + family["launches"][kname]),
             max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
@@ -1791,6 +2380,8 @@ def main():
             launches_mixed_gn_path=mixed_launches[kname],
             mixed_gn_launches_per_iter=opt_res["mixed"]["launches_per_iter"][kname],
             isam2_launches_per_update=isam2["launches_per_update"][kname], isam2_d3_sweep=isw,
+            launches_isam2_family_path=family["launches"][kname],
+            fixed_lag_launches_per_update=family["c"]["launches_per_update"][kname],
             cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname]
             + opt_res["mixed"]["cuda_launches"][kname],
             cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname]
@@ -1804,7 +2395,8 @@ def main():
     isam2.pop("batch_gn_history")
     print(json.dumps(finite_json({"kernels": out, "gn_ms_per_iter": step_ms,
                                   "ba_lm_iters_per_s": ba_iters_per_s, "ba_lm_reference": c2,
-                                  "isam2": isam2, "smart": smart_res, "optimizers": opt_res}),
+                                  "isam2": isam2, "isam2_family": family, "smart": smart_res,
+                                  "optimizers": opt_res}),
                      allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1814,4 +2406,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        remove_checkpoints(os.path.dirname(os.path.abspath(__file__)))
+    sys.exit(rc)

@@ -972,3 +972,89 @@ class IncrementalEngine:
     def var_max_delta(self) -> np.ndarray:
         """max |delta| per gid (relinearization marking; one host read)."""
         return self._read(_max_abs(self.x[: self.n]))
+
+    # -- marginalization ------------------------------------------------------------
+
+    def marginalize_leaves(self, gids: Sequence[int],
+                           keep_messages: bool = True) -> List[Tuple[int, int]]:
+        """Marginalize variables out of the tree (ISAM2::marginalizeLeaves,
+        gtsam/nonlinear/ISAM2.cpp:487-724). Returns the retired (group, row)
+        factor units whose information went into marginal factors.
+
+        Two phases: (1) an update with the marginalized variables ordered
+        FIRST and no supernode merged across the marginal / live boundary,
+        so every one of them ends frontal in a leaf-most clique of marginal
+        variables only; (2) those cliques are deleted, and the cached
+        separator message (U, ug) of each top-most one becomes a persistent
+        marginal factor on its live separator (the LinearContainerFactor
+        analog), copied into the message pool of its class."""
+        gids = [g for g in gids if self.var_clique.get(g) is not None]
+        if not gids:
+            return []
+        gset = set(gids)
+        self.update(marked=gset, relin=gset, first=gids)
+
+        dead: List[CliqueRec] = []
+        for g in gids:
+            cid = self.var_clique.get(g)
+            if cid is None:
+                continue
+            c = self.cliques[cid]
+            if not all(v in gset for v in c.frontal):
+                raise RuntimeError(f"marginalize_leaves: clique {cid} mixes live vars "
+                                   f"{[v for v in c.frontal if v not in gset]}")
+            if c not in dead:
+                dead.append(c)
+        dead_cids = {c.cid for c in dead}
+        for c in dead:
+            if any(ch not in dead_cids and self.cliques[ch] is not None and self.cliques[ch].alive
+                   for ch in c.children):
+                raise RuntimeError("marginalize_leaves: clique has live children")
+
+        all_retired: List[Tuple[int, int]] = []
+        for c in dead:
+            live_scope = list(c.separator)
+            nsc = c.cls[1]
+            # only the top-most marginal cliques (all-live separator) leave a
+            # message: lower ones flowed into their dead parents in phase 1
+            if keep_messages and live_scope and not any(v in gset for v in live_scope):
+                mp = self.msg_pools.get(nsc)
+                if mp is None:
+                    mp = self.msg_pools[nsc] = PoolClass(
+                        0, nsc, 0, _make_pool(0, nsc, self.d, 0, self.dtype, self.device))
+                r = mp.alloc()
+                while r < 0:
+                    self.msg_pools[nsc] = mp = _grow_pool(mp, self.d)
+                    r = mp.alloc()
+                src = self.pools[c.cls].arrays
+                _copy_msg(mp.arrays.U, mp.arrays.ug, self._upload([r]), src.U, src.ug,
+                          self._upload([c.row]))
+                mid = len(self.msgs)
+                self.msgs.append(MsgRec(mid=mid, ns=nsc, row=r, scope=live_scope))
+                # owner: the live clique where the first separator var is frontal
+                self.cliques[self.var_clique[live_scope[0]]].owned_msg.append(mid)
+            # unlink and free; the factors and messages this clique owned are
+            # retired: their information now lives in the marginal factor
+            if c.parent >= 0 and self.cliques[c.parent] is not None:
+                self.cliques[c.parent].children.discard(c.cid)
+            self.pools[c.cls].free.append(c.row)
+            for gid in c.frontal:
+                self.var_clique.pop(gid, None)
+            retired = set(c.owned_fac)
+            all_retired.extend(c.owned_fac)
+            for (g, r) in c.owned_fac:
+                for k in range(self.groups[g].K):
+                    gid = int(self.groups[g].keys[r, k])
+                    lst = self.var_factors.get(gid)
+                    if lst:
+                        self.var_factors[gid] = [u for u in lst if u not in retired]
+            for mid in c.owned_msg:
+                mr = self.msgs[mid]
+                if mr.alive:  # its information flowed into this clique: row reusable
+                    mr.alive = False
+                    self.msg_pools[mr.ns].free.append(mr.row)
+            self.cliques[c.cid] = None
+            self.n_live -= 1
+        # tombstone the variables (their x rows stay zero)
+        self.zero_delta_rows(sorted(gset))
+        return all_retired

@@ -18,6 +18,7 @@ index per iteration.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -59,6 +60,19 @@ class FactorType:
 
     def retract_fn(self, slot: int):
         return manifold.get(self.var_types[slot]).retract
+
+
+@lru_cache(maxsize=None)
+def row_block(ftype: FactorType, start: int, stop: int) -> FactorType:
+    """The factor family of `ftype` restricted to whitened residual rows
+    [start, stop): the same residual, with a square-root information of
+    those rows only ([N, stop - start, resid_dim]; `resid_dim` here counts
+    whitened rows). A factor's row blocks sum to its Hessian and error:
+    this is how ISAM2 takes a factor wider than its block dimension (a
+    fixed-lag marginal on several variables). Named "<name>@rows<a>:<b>"."""
+    return FactorType(name=f"{ftype.name}@rows{start}:{stop}", var_types=ftype.var_types,
+                      resid_dim=stop - start, residual=ftype.residual,
+                      linearize_residual=ftype.linearize_residual, analytic=ftype.analytic)
 
 
 @dataclass

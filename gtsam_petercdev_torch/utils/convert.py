@@ -8,8 +8,11 @@ package and the port (the JAX side keeps its factor data as numpy already):
            (R [N,3,3], t [N,3], cal [N,3]) for SfmCamera
   factors: [(factor_type_name, keys [N, K], params, sqrt_info [N, d, d])]
            factor_type_name is "Prior<Type>", "Between<Type>" (params: a
-           value of <Type> in the layout above) or a projection factor's
-           name, "GeneralSFMFactor" etc. (params: a dict, {"uv": [N, 2]})
+           value of <Type> in the layout above), a projection factor's
+           name, "GeneralSFMFactor" etc. (params: a dict, {"uv": [N, 2]}),
+           or "LinearContainer[T1,...]<D>", a fixed-lag marginal factor
+           (params: (x0s, sqrtH [N, D, D], rhs [N, D]), x0s one value per
+           variable in the layout of its type)
 
 This is the one place that carries state across: a JAX `Values` / graph,
 or a smart-factor batch, read out as numpy, becomes the port's here.
@@ -24,7 +27,8 @@ import torch
 
 from gtsam_petercdev_torch.device import DeviceLike, resolve_device, resolve_dtype
 from gtsam_petercdev_torch.geometry.pose3 import Pose3
-from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
+from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph, row_block
+from gtsam_petercdev_torch.nonlinear.fixed_lag import linear_container_factor
 from gtsam_petercdev_torch.nonlinear.values import Values
 from gtsam_petercdev_torch.sfm.bal import SfmCamera
 from gtsam_petercdev_torch.slam import factors, projection, smart
@@ -47,9 +51,17 @@ def _layout(type_name: str, params):
 
 
 def factor_type(name: str):
-    """FactorType from its name (see the module docstring)."""
+    """FactorType from its name (see the module docstring; "<name>@rows<a>:<b>"
+    is factor_graph.row_block of <name>'s type)."""
+    if "@rows" in name:
+        base, rows = name.rsplit("@rows", 1)
+        start, stop = (int(x) for x in rows.split(":"))
+        return row_block(factor_type(base), start, stop)
     if name in _PROJECTION:
         return _PROJECTION[name]()
+    if name.startswith("LinearContainer["):
+        inner, dim = name[len("LinearContainer["):].rsplit("]", 1)
+        return linear_container_factor(tuple(inner.split(",")), int(dim))
     return factors.factor_type(name)
 
 
@@ -73,7 +85,10 @@ def graph_from_arrays(
     graph = NonlinearFactorGraph(device=device, dtype=dtype)
     for name, keys, params, sqrt_info in factors:
         ft = factor_type(name)
-        if not isinstance(params, dict):  # Prior / Between: a manifold value
+        if name.startswith("LinearContainer["):
+            x0s, sqrtH, rhs = params
+            params = (tuple(_layout(t, x0) for t, x0 in zip(ft.var_types, x0s)), sqrtH, rhs)
+        elif not isinstance(params, dict):  # Prior / Between: a manifold value
             params = _layout(ft.var_types[0], params)
         graph.add_batch(ft, keys, params, sqrt_info)
     return graph
