@@ -19,7 +19,10 @@
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
   1. card    name and power limit (nvidia-smi); TF32 off for matmul and cuDNN
-  2. build   nvcc builds every kernel of the paths from gtsam_petercdev_torch/csrc
+  2. build   g++ builds the host libraries (csrc/host: the AMD ordering, the
+             host engine's native sweeps), then nvcc every kernel of the
+             paths from gtsam_petercdev_torch/csrc, each source its own
+             process, all started together
   3. kernels each of the four CUDA kernels against its plain PyTorch version
              on the card, in float64 and float32: K1 (bucket partial Cholesky
              for large fronts: factor, column-slab solve and tiled Schur
@@ -45,7 +48,12 @@ a result line:
              and levenberg_marquardt, launch counters reset just before and
              read just after; the first GN step against the dense Cholesky
              oracle; a small graph against the CPU path; ms per chained GN
-             iteration in float32 and float64
+             iteration in float32 and float64. Its plan line: the F_size of
+             each of best_ordering's four candidates (ND, the port's AMD,
+             the COLAMD proxy, degree-ascending), the one chosen, cliques,
+             levels, buckets and their routing; gate: the chosen ordering
+             fills at most 1.20x the JAX package's CCOLAMD on the same graph
+             (tests/data/ordering_reference.json, tools/ordering_reference.py)
   5. BA      synthetic bundle adjustment, 1000 cameras / 50,000 points / 4
              observations each, through levenberg_marquardt with
              solver="multifrontal" and solver="schur", float32 and float64,
@@ -54,9 +62,14 @@ a result line:
              the CPU path; LM iterations per second by bench.py's protocol;
              at the shape of tests/data/ba_synth_lm_reference.json
              (tools/ba_reference.py), the f32 and f64 LM histories beside the
-             JAX package's and the port's CPU f32 (gate: f64 = JAX's, rel 1e-8)
+             JAX package's and the port's CPU f32 (gate: f64 = JAX's, rel 1e-8);
+             its plan line and fill gate as phase 4's
   6. iSAM2   float64, through run_city10000 / ISAM2.update on a synthetic
-             City10000-like stream (utils/synthetic.city_stream): a) its
+             City10000-like stream (utils/synthetic.city_stream), each local
+             problem ordered by the port's AMD (the plan line: the batch City
+             graph of run c)'s lines on it, its fill against CCOLAMD's, gated
+             as phase 4's; run c) prints its separator widths: the largest
+             class, the level steps by ns and kernel, the share at ns >= 64): a) its
              first 150 lines on the card and on the CPU path, final
              estimates within rel 1e-9, identical Bayes-tree counters and
              wildfire rounds update by update, and a second card run's
@@ -104,7 +117,7 @@ a result line:
              exact inverse and against dense Marginals with its 1e-10 jitter's
              first-order term added back (both <= 1e-8 x the largest entry),
              the sweep's ms, launches and device time, adjacent poses sharing
-             a clique; c) fixed lag 100 poses over 1,000 lines (loop closures
+             a clique; c) fixed lag 100 poses over 400 lines (loop closures
              to marginalized poses dropped): per-update ms split into
              ISAM2.update and marginalize_leaves, live cliques (gate: at most
              the window's variables), launches per update, the window against
@@ -118,7 +131,17 @@ a result line:
              finite, ATE within 10% of float64's, bad pivots, ms, launches;
              h) K4 / K1 / K2 against their plain versions at every shape
              they took in b)-g)
- 10. result  a `kernels` JSON line, the card line, then the last line
+ 10. host engine  the host engine (engine_backend="numpy": per-clique numpy
+             payloads, the native sweeps) on the card machine's CPU, right
+             after phase 9, on phase 6's stream and ordering: a) its first
+             150 lines against the card engine and against the card engine
+             on the CPU (estimates rel 1e-9, the same n_reeliminated in
+             every update), the three timed per update; b) CITY_LINES lines at
+             City10000's parameters: ms per update beside run c)'s, the
+             native sweeps' share of an update, ATE (gate: within 0.1% of
+             run c)'s) and the largest pose difference to run c)'s estimate;
+             c) a checkpoint at line 100 resumed to 150, bitwise
+ 11. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -188,16 +211,18 @@ CITY_PROGRESS = 450
 # FIXED_LAG_LINES lines, lag FIXED_LAG poses; e) the concurrent pairs over
 # CONCURRENT_LINES lines, lag CONCURRENT_LAG, a synchronize every
 # CONCURRENT_SYNC updates; f) NonlinearISAM over NISAM_LINES lines, reorder
-# interval NISAM_REORDER; g) float32 iSAM2 over F32_LINES lines. e), f) and
-# g) are cut for the script's time (from 300 lines at lag 50 and a
-# synchronize every 25, 200 and 500 lines): the batch filter, the batch
-# smoother and NonlinearISAM hold one factor batch per update, and each
-# linearization walks them all: their time grows with the stream's length
-# (PERF.md section 4)
+# interval NISAM_REORDER; g) float32 iSAM2 over F32_LINES lines. c), e), f)
+# and g) are cut for the script's time (c) from 1,000 lines, which saves
+# ~40 s against a 1,200 s limit that the uncut script came within 124 s of;
+# e) from 300 lines at lag 50 and a synchronize every 25; f) from 200
+# lines; g) from 500 lines): the batch filter, the batch smoother and
+# NonlinearISAM hold one factor batch per update, and each linearization
+# walks them all: their time grows with the stream's length (PERF.md
+# section 4)
 FAMILY_GATE_LINES = 150
 FAMILY_GATE_LAG = 50
 FAMILY_GATE_CKPT = 100
-FIXED_LAG_LINES = 1000
+FIXED_LAG_LINES = 400
 FIXED_LAG = 100
 CONCURRENT_LINES = 60
 CONCURRENT_LAG = 15
@@ -217,6 +242,17 @@ BA_REF = "tests/data/ba_synth_lm_reference.json"
 SMART_REF = "tests/data/smart_ba_reference.json"
 SMART_RIG = (20, 500)
 SMART_PRIOR_SIGMA = 1e-4
+# phases 4-6: the JAX package's CCOLAMD (and COLAMD proxy) plans of the
+# sphere, BA and City graphs, from tools/ordering_reference.py; the ordering
+# each phase plans with may fill at most FILL_GATE x CCOLAMD's F_size
+ORDERING_REF = "tests/data/ordering_reference.json"
+FILL_GATE = 1.20
+# phase 10 (the host engine, engine_backend="numpy", on the card machine's
+# CPU) on phase 6's stream: a) CITY_GATE_LINES lines against the card
+# engine; b) CITY_LINES lines, ATE within HOST_ATE_GATE (relative) of the
+# card's run c); c) a checkpoint at FAMILY_GATE_CKPT resumed to
+# CITY_GATE_LINES
+HOST_ATE_GATE = 1e-3
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
@@ -433,10 +469,10 @@ def check_kernels(torch, mods, cases, timed, extras=True, errs_out=None):
             }[kname]
             sweep_k = lambda: [fn(*a) for a in inputs]
             sweep_p = lambda: [plain(*a) for a in inputs]
-            p1 = event_ms(torch, sweep_p, 2)
+            p1 = event_ms(torch, sweep_p, 1)
             k_1 = event_ms(torch, sweep_k, 10)
             k_2 = event_ms(torch, sweep_k, 10)
-            p2 = event_ms(torch, sweep_p, 2)
+            p2 = event_ms(torch, sweep_p, 1)
             b_ms, b_by = bound([cost(B, nf, ns, d, itemsize) for B, nf, ns, d in sweep_cases], name)
             v1.reset_launch_counts()
             sweep_k()
@@ -659,6 +695,48 @@ def log_routing(elimination, label, maps):
         for (B, nf, ns, a), (_, _, _, b) in zip(r64, r32)))
 
 
+def ordering_line(symbolic, label, n, edges, d, ref, cands=None, chosen=None):
+    """Phases 4-6: the plan's ordering. F_size (padded frontal entries of
+    the plan at block dimension d, the planner's defaults) of each of
+    best_ordering's four candidates, the one chosen (best_ordering's, the
+    first of least F_size, or `chosen` by name), beside the JAX package's
+    CCOLAMD and proxy on the same graph; gate: chosen <= FILL_GATE x
+    CCOLAMD. Returns (the chosen perm, a summary)."""
+    if cands is None:
+        cands = symbolic.ordering_candidates(n, edges)
+    F = {name: d * d * (f - 1) + 1 for name, _, f in cands}  # F_size is d^2 (F_1 - 1) + 1
+    best = min(cands, key=lambda c: c[2])
+    name, perm = (best[0], best[1]) if chosen is None else next(
+        (c[0], c[1]) for c in cands if c[0] == chosen)
+    ccol, proxy = ref["ccolamd"]["F_size"], ref["proxy"]["F_size"]
+    ratio = F[name] / ccol
+    log(f"{label} ordering: {name} (F_size {F[name]}, {ratio:.4f} x the JAX package's CCOLAMD "
+        f"{ccol}, gate <= {FILL_GATE}; its proxy {proxy}); candidates "
+        + ", ".join(f"{k} {v}" for k, v in F.items())
+        + f"; JAX CCOLAMD plan {ref['ccolamd']['cliques']} cliques {ref['ccolamd']['levels']} "
+          f"levels")
+    if not ratio <= FILL_GATE:
+        raise AssertionError(f"{label}: the {name} ordering fills {ratio:.3f} x CCOLAMD")
+    return perm, dict(chosen=name, F_size=F, ratio_to_ccolamd=ratio, ccolamd_F_size=ccol,
+                      proxy_F_size=proxy, best=best[0])
+
+
+def plan_facts(elimination, maps):
+    """Cliques, levels, buckets and the bucket routing of a batch plan."""
+    st = maps.plan.stats()
+    routes = {}
+    for name, itemsize in (("float64", 8), ("float32", 4)):
+        r = [ROUTE_KERNEL[x[3]] for x in routing(elimination, maps, itemsize)]
+        routes[name] = {k: r.count(k) for k in dict.fromkeys(r)}
+    return dict(cliques=st["n_cliques"], levels=st["n_levels"], buckets=len(maps.buckets),
+                routes=routes)
+
+
+def ordering_ref(here):
+    with open(os.path.join(here, ORDERING_REF)) as f:
+        return json.load(f)["graphs"]
+
+
 # --- phase 6: iSAM2 ------------------------------------------------------------------
 
 
@@ -724,6 +802,42 @@ class WildfireRecorder:
             else:
                 if len(ra) != len(rb):
                     out.append((u, min(len(ra), len(rb)), []))
+        return out
+
+
+class LevelWidths:
+    """The engine's level steps (K4 or K1, by `level_route`) counted by
+    separator class and kernel while the context is open."""
+
+    def __enter__(self):
+        from collections import Counter
+
+        from gtsam_petercdev_torch.inference import incremental as inc
+
+        self.inc, self.saved, self.count = inc, inc._level, Counter()
+        level = self.saved
+
+        def counted(pool, gp, boff, goff, B, nf, ns, d, *rest):
+            route = inc.level_route(nf, ns, d, pool.element_size())
+            self.count[ns, ROUTE_KERNEL[route]] += 1
+            return level(pool, gp, boff, goff, B, nf, ns, d, *rest)
+
+        inc._level = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.inc._level = self.saved
+
+    def summary(self, wide=64):
+        """Max separator class, and per kernel its launches and the share
+        of them at ns >= wide."""
+        out = dict(max_ns=max((ns for ns, _ in self.count), default=0), by_ns={})
+        for (ns, k), c in sorted(self.count.items()):
+            out["by_ns"].setdefault(k, {})[ns] = c
+        for k, by in out["by_ns"].items():
+            tot = sum(by.values())
+            out[k] = dict(launches=tot, share_ns_ge_64=sum(c for ns, c in by.items()
+                                                           if ns >= wide) / tot)
         return out
 
 
@@ -823,7 +937,18 @@ def run_isam2(torch, here, v1):
     from gtsam_petercdev_torch.slam.factors import between_factor, prior_factor
     from gtsam_petercdev_torch.utils import synthetic
 
+    from gtsam_petercdev_torch.inference import symbolic
+
     lines, gt = synthetic.city_stream(CITY_POSES, seed=SEED)
+    # the plan line: the City graph of run c)'s lines, ordered as the
+    # engine orders each local problem (ccolamd_ordering: the port's AMD)
+    e = np.array([[int(ln.split()[1]), int(ln.split()[3])] for ln in lines[:CITY_LINES]])
+    amd, city_order = ordering_line(symbolic, f"City ({CITY_LINES} lines, batch)",
+                                    int(e.max()) + 1, e, 3, ordering_ref(here)["city"],
+                                    chosen="amd")
+    cp = symbolic.symbolic_eliminate(int(e.max()) + 1, [e], 3, ordering=amd)
+    city_order.update(cliques=len(cp.cliques), levels=len(cp.levels))
+    log(f"City graph on AMD: {len(cp.cliques)} cliques, {len(cp.levels)} levels (batch plan)")
     # the Bayes tree's counters: the card's tree must be the CPU path's
     counters = ("n_relinearized", "n_new_factors", "n_affected_cliques", "n_orphans",
                 "n_reeliminated", "n_cliques")
@@ -883,6 +1008,7 @@ def run_isam2(torch, here, v1):
         f"{same}")
     if not same:
         raise AssertionError("iSAM2: two card runs of the same lines differ")
+    card_gate = runs["cuda"]
     a_out = dict(estimate_rel=rel, rounds_card=sum(u.wildfire_rounds for u, _ in ups),
                  rounds_cpu=sum(v.wildfire_rounds for _, v in ups), rounds_differ=rounds,
                  divergences=div, largest_change_where_they_part=part_max,
@@ -960,10 +1086,12 @@ def run_isam2(torch, here, v1):
     v1.reset_launch_counts()
     ckpt = checkpoint_path(here)
     t0 = time.perf_counter()
-    res = run_city10000(path, device="cuda", progress_every=CITY_PROGRESS, step_cb=step_cb,
-                        checkpoint_path=ckpt)
+    with LevelWidths() as lw:
+        res = run_city10000(path, device="cuda", progress_every=CITY_PROGRESS, step_cb=step_cb,
+                            checkpoint_path=ckpt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    widths = lw.summary()
     launches, cuda_launches = v1.launch_counts(), v1.cuda_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
     isam = window["isam"]
@@ -1001,13 +1129,17 @@ def run_isam2(torch, here, v1):
         window_cuda_launches_per_update=n_kern / PROFILE_UPDATES,
         reads_per_update=reads, reelim_mean=float(np.mean(reelim)), reelim_max=int(max(reelim)),
         peak_mib=peak, ate_rmse=ate, error=err, batch_gn_error=gn.error,
-        batch_gn_history=gn.error_history, bad_pivots=bad, gate_a=a_out)
+        batch_gn_history=gn.error_history, bad_pivots=bad, gate_a=a_out, ordering=city_order,
+        level_widths=widths)
     log(f"iSAM2 run c) {n_up} lines ({res.n_poses} poses, {res.n_loop_closures} loop closures) in "
         f"{wall:.1f} s: per-update ms mean {st.mean():.3f} p50 {out['step_ms']['p50']:.3f} p90 "
         f"{out['step_ms']['p90']:.3f} p99 {out['step_ms']['p99']:.3f} max {st.max():.3f}")
     per = ", ".join(f"{k} {v / n_up:.3f}" for k, v in launches.items())
     log(f"iSAM2 run c) wrapper launches {launches} ({per} per update); CUDA launches "
         f"{cuda_launches}")
+    log(f"iSAM2 run c) separator widths: max ns class {widths['max_ns']}; level-step launches "
+        + "; ".join(f"{k} {widths[k]['launches']} ({100.0 * widths[k]['share_ns_ge_64']:.1f}% at "
+                    f"ns >= 64), by ns {widths['by_ns'][k]}" for k in widths["by_ns"]))
     log(f"iSAM2 run c) by layer, {PROFILE_UPDATES} updates from update {split} (synchronized "
         f"timers; ms per update, share of the update): "
         + "; ".join(f"{k} {v:.3f} ({100.0 * v / layers['update']:.1f}%)"
@@ -1032,7 +1164,8 @@ def run_isam2(torch, here, v1):
                              f"launches {launches}")
     if not (np.isfinite(res.estimate).all() and res.estimate.shape == (res.n_poses, 3)):
         raise AssertionError("iSAM2 run c) estimate is not finite poses")
-    return out, dict(isam=isam, estimate=res.estimate, checkpoint=ckpt, path=path)
+    return out, dict(isam=isam, estimate=res.estimate, checkpoint=ckpt, path=path,
+                     card_gate=card_gate)
 
 
 # --- phase 9: the iSAM2 family ---------------------------------------------------------
@@ -1553,6 +1686,132 @@ def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
     return out
 
 
+# --- phase 10: the host engine ------------------------------------------------------------
+
+
+class NativeTimer:
+    """Host time inside the host engine's two native sweeps (the whole
+    level sweep, eliminate_sweep; the whole wildfire descent,
+    wildfire_sweep) while the context is open."""
+
+    def __enter__(self):
+        from gtsam_petercdev_torch.inference import incremental as inc
+
+        self.ms = {"eliminate_sweep": 0.0, "wildfire_sweep": 0.0}
+        self.saved = [(inc.IncrementalEngine, "_native_eliminate"), (inc._NativeTree, "sweep")]
+        self.saved = [(o, a, o.__dict__[a]) for o, a in self.saved]
+        for (owner, attr, fn), name in zip(self.saved, self.ms):
+            def timed(*a, _fn=fn, _name=name, **k):
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                self.ms[_name] += (time.perf_counter() - t0) * 1e3
+                return out
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+
+
+def run_host_engine(torch, here, isam2, card_gate=None, dev="cuda"):
+    """Phase 10: the host engine (engine_backend="numpy": exact per-clique
+    payloads, the native sweeps of csrc/host/solve_native.cpp) on the card
+    machine's CPU, on phase 6's stream and ordering (the port's AMD).
+    `card_gate`: phase 6 a)'s card run of the first CITY_GATE_LINES lines."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.models.city10000 import run_city10000
+    from gtsam_petercdev_torch.utils import synthetic
+
+    lines, gt = synthetic.city_stream(CITY_POSES, seed=SEED)
+    out = {}
+
+    # a) the first lines, host engine against the card engine (phase 6
+    # a)'s card run of the same lines, or a run on `dev` here) and against
+    # the card engine on this machine's CPU ("torch" on device "cpu"): the
+    # two engines a user without a card can choose between, timed apart
+    path = write_stream(here, lines, CITY_GATE_LINES)
+    t0 = time.perf_counter()
+    host = run_city10000(path, device="cpu", engine_backend="numpy")
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_torch = run_city10000(path, device="cpu")
+    t_cpu_torch = time.perf_counter() - t0
+    card = card_gate if card_gate is not None else run_city10000(path, device=dev)
+    rels, diffs = {}, {}
+    for name, other in (("card engine", card), ("card engine on the CPU", cpu_torch)):
+        rels[name] = float(np.linalg.norm(host.estimate - other.estimate)
+                           / np.linalg.norm(other.estimate))
+        diffs[name] = [i for i, (u, v) in enumerate(zip(host.updates, other.updates, strict=True))
+                       if u.n_reeliminated != v.n_reeliminated]
+    ms = {name: np.asarray(r.step_times) * 1e3 for name, r in
+          (("host", host), ("torch_cpu", cpu_torch), ("card", card))}
+    out["a"] = dict(estimate_rel=rels, reeliminated_differ=diffs, wall_s=dict(
+        host=t_host, torch_cpu=t_cpu_torch), step_ms={k: dict(stats_ms(v), p90=float(
+            np.percentile(v, 90))) for k, v in ms.items()})
+    log(f"host engine a) {CITY_GATE_LINES} lines, host engine vs " + "; vs ".join(
+        f"{k}: estimates rel {rels[k]:.3e}, n_reeliminated identical in "
+        f"{len(host.updates) - len(diffs[k])} of {len(host.updates)} updates" for k in rels)
+        + " (gate 1e-9, all identical); per-update ms mean / p50 / p99 / max: " + "; ".join(
+        f"{k} {v.mean():.3f} / {np.percentile(v, 50):.3f} / {np.percentile(v, 99):.3f} / "
+        f"{v.max():.3f}" for k, v in ms.items()) + f"; wall host {t_host:.2f} s, card engine "
+        f"on the CPU {t_cpu_torch:.2f} s")
+    if not (all(r <= 1e-9 for r in rels.values()) and not any(diffs.values())):
+        raise AssertionError("host engine a): the host and the card engine disagree")
+
+    # b) the full run at City10000's parameters beside run c)'s card numbers
+    path = write_stream(here, lines, CITY_LINES)
+    t0 = time.perf_counter()
+    with NativeTimer() as nat:
+        res = run_city10000(path, device="cpu", engine_backend="numpy")
+    wall = time.perf_counter() - t0
+    st = np.asarray(res.step_times) * 1e3
+    ate, ate_card = res.ate_rmse(gt), isam2["ate_rmse"]
+    dpose = res.estimate - isam2["final_estimate"]
+    dpose[:, 2] = np.arctan2(np.sin(dpose[:, 2]), np.cos(dpose[:, 2]))
+    largest = float(np.abs(dpose).max())
+    native = sum(nat.ms.values())
+    out["b"] = dict(lines=len(res.updates), wall_s=wall,
+                    step_ms=dict(stats_ms(st), p90=float(np.percentile(st, 90))),
+                    native_ms_per_update={k: v / len(st) for k, v in nat.ms.items()},
+                    native_share=float(native / st.sum()), ate_rmse=ate, ate_rmse_card=ate_card,
+                    largest_pose_difference_to_card=largest,
+                    reelim_mean=float(np.mean([u.n_reeliminated for u in res.updates])),
+                    wildfire_cliques_mean=float(np.mean([u.wildfire_rounds for u in res.updates])))
+    c = isam2["step_ms"]
+    log(f"host engine b) {len(res.updates)} lines in {wall:.1f} s on the CPU: per-update ms mean "
+        f"{st.mean():.3f} p50 {np.percentile(st, 50):.3f} p90 {np.percentile(st, 90):.3f} p99 "
+        f"{np.percentile(st, 99):.3f} max {st.max():.3f} (card engine, run c): mean "
+        f"{c['mean']:.3f} p50 {c['p50']:.3f} p90 {c['p90']:.3f} p99 {c['p99']:.3f} max "
+        f"{c['max']:.3f}); native sweeps {100.0 * native / st.sum():.1f}% of the update time "
+        f"(eliminate_sweep {nat.ms['eliminate_sweep'] / len(st):.3f}, wildfire_sweep "
+        f"{nat.ms['wildfire_sweep'] / len(st):.3f} ms per update); n_reeliminated mean "
+        f"{out['b']['reelim_mean']:.2f}, wildfire cliques solved mean "
+        f"{out['b']['wildfire_cliques_mean']:.1f}; ATE-RMSE {ate:.6f} (card {ate_card:.6f}, gate "
+        f"rel {HOST_ATE_GATE:g}); largest pose difference to the card's estimate {largest:.3e}")
+    finite = bool(np.isfinite(res.estimate).all()) and res.estimate.shape == (res.n_poses, 3)
+    if not (finite and abs(ate - ate_card) <= HOST_ATE_GATE * ate_card
+            and all(int(u.bad_pivots) == 0 for u in res.updates)):
+        raise AssertionError(f"host engine b): finite {finite}, ATE {ate} against {ate_card}")
+
+    # c) a host checkpoint resumed bitwise
+    path = write_stream(here, lines, CITY_GATE_LINES)
+    ckpt = os.path.join(here, "gtsam_petercdev_torch", "_build", "host_isam2.ckpt")
+    with contextlib.redirect_stdout(io.StringIO()):  # its progress lines
+        full = run_city10000(path, device="cpu", engine_backend="numpy",
+                             progress_every=FAMILY_GATE_CKPT, checkpoint_path=ckpt)
+    rest = run_city10000(path, device="cpu", engine_backend="numpy", resume_from=ckpt)
+    same = bool(np.array_equal(rest.estimate, full.estimate)) and bool(
+        np.array_equal(full.estimate, host.estimate))
+    out["c"] = dict(bytes=os.path.getsize(ckpt), bitwise=same)
+    log(f"host engine c) a checkpoint at line {FAMILY_GATE_CKPT} ({out['c']['bytes']} bytes) "
+        f"resumed to line {CITY_GATE_LINES}: bitwise the uninterrupted run: {same}")
+    if not same:
+        raise AssertionError("host engine c): the resumed run differs")
+    return out
+
+
 # --- phase 7: smart-factor bundle adjustment --------------------------------------------
 
 
@@ -1950,7 +2209,7 @@ def main():
     from gtsam_petercdev_torch.models.bundle_adjustment import build_ba_graph
     from gtsam_petercdev_torch.nonlinear.optimizers import (
         LMParams, OptimizerParams, gauss_newton, levenberg_marquardt)
-    from gtsam_petercdev_torch.ops import build, cholesky as v1, cholesky_v2 as v2
+    from gtsam_petercdev_torch.ops import build, build_host, cholesky as v1, cholesky_v2 as v2
     from gtsam_petercdev_torch.sfm import schur
     from gtsam_petercdev_torch.utils import convert, synthetic
 
@@ -1961,7 +2220,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # 2. build
+    # 2. build: the host libraries (g++), then the kernels (nvcc)
+    t0 = time.perf_counter()
+    build_host.build_all()
+    log(f"host build (g++ {' '.join(build_host.CXX_FLAGS)}): "
+        + ", ".join(os.path.basename(build_host.library_path(k)) for k in build_host.SOURCES)
+        + f" in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for line in build.build_all(verbose=True):
         log(line)
@@ -2049,6 +2313,16 @@ def main():
         f"optimizer plan {len(opt_maps.buckets)} buckets")
     log_routing(elimination, "sphere bench plan", bench_maps)
     log_routing(elimination, "sphere optimizer plan", opt_maps)
+    refs = ordering_ref(here)
+    sphere_edges = np.concatenate([np.stack(s.gids, axis=1) for s in structure
+                                   if len(s.gids) == 2])
+    perm, sphere_order = ordering_line(symbolic, "sphere", len(v64), sphere_edges, 6,
+                                       refs["sphere"])
+    if not np.array_equal(perm, bench_plan.perm):
+        raise AssertionError("the sphere plan's ordering is not best_ordering's least-fill one")
+    plans = {"sphere": dict(ordering=sphere_order, bench=plan_facts(elimination, bench_maps),
+                            optimizer=plan_facts(elimination, opt_maps))}
+    log(f"sphere plans: bench {plans['sphere']['bench']}; optimizer {plans['sphere']['optimizer']}")
 
     if optimizers_only:
         # phase 8 alone on the sphere; no result line
@@ -2080,7 +2354,7 @@ def main():
     var_dims = np.full(n_vars, 9, dtype=np.int64)
     var_dims[offs["Point3"] : offs["Point3"] + n_pts] = 3
     edges = np.stack(ba_struct[0].gids, axis=1)
-    perm = symbolic.best_ordering(n_vars, edges)
+    perm, ba_order = ordering_line(symbolic, "BA", n_vars, edges, 9, refs["ba"])
     t_order = time.perf_counter() - t0
     ba_maps = {}
     for per_level in (4, 2):
@@ -2097,6 +2371,9 @@ def main():
         f"{max(bm.mb for bm in ba_bench_maps.buckets) * 9}")
     log_routing(elimination, "BA bench plan", ba_bench_maps)
     log_routing(elimination, "BA optimizer plan", ba_maps[2])
+    plans["ba"] = dict(ordering=ba_order, bench=plan_facts(elimination, ba_bench_maps),
+                       optimizer=plan_facts(elimination, ba_maps[2]))
+    log(f"BA plans: bench {plans['ba']['bench']}; optimizer {plans['ba']['optimizer']}")
 
     # 3. kernels against their plain versions
     all_maps = ((bench_maps, 6), (opt_maps, 6), (ba_bench_maps, 9), (ba_maps[2], 9))
@@ -2344,8 +2621,14 @@ def main():
 
     # 9. the iSAM2 family on run c)'s tree and stream (while they live)
     family = run_isam2_family(torch, here, v1, city)
+    isam2["final_estimate"], card_gate = city["estimate"], city["card_gate"]
     del city
     log(f"iSAM2 family phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # 10. the host engine on the card machine's CPU, beside run c)
+    host_res = run_host_engine(torch, here, isam2, card_gate)
+    del isam2["final_estimate"]
+    log(f"host engine phase done at {time.perf_counter() - t_start:.1f} s")
 
     # 7. smart-factor BA (no bucket kernel on its path: dense library algebra,
     # as in the JAX package)
@@ -2354,7 +2637,7 @@ def main():
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 10. result lines
+    # 11. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
@@ -2396,7 +2679,8 @@ def main():
     print(json.dumps(finite_json({"kernels": out, "gn_ms_per_iter": step_ms,
                                   "ba_lm_iters_per_s": ba_iters_per_s, "ba_lm_reference": c2,
                                   "isam2": isam2, "isam2_family": family, "smart": smart_res,
-                                  "optimizers": opt_res}),
+                                  "optimizers": opt_res, "plans": plans,
+                                  "host_engine": host_res}),
                      allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,7 +49,22 @@ ISAM2Clique.{h,cpp} (cached separator factors, wildfire back-substitution).
 
 The bucket kernels take their plain PyTorch versions on CPU tensors and
 their CUDA kernels on CUDA tensors (no fallback): the engine is one code
-path on either device. Buckets keep their exact clique counts (the JAX
+path on either device. That is the "torch" backend, the counterpart of the
+JAX engine's "jax" backend.
+
+`backend="numpy"` is the host engine, the counterpart of the JAX engine's
+"numpy" backend (its production path on a CPU host): no pools, but exact
+per-clique numpy payloads (`HostPayload`, U dense [sd, sd]) keyed by clique
+id and freed with the clique; exact shapes (no power-of-two classes); the
+block pool assembled by native row scatters (`_NpAccum`); and the whole
+level sweep and the whole wildfire descent each one call of the native
+sweeps (`csrc/host/solve_native.cpp`: `eliminate_sweep` over the plan,
+`wildfire_sweep` over the flat per-slot tables of `_NativeTree`). The
+sweeps are float64 code, so the host engine runs in float64 on device
+"cpu" only (anything else raises). Its delta x is a numpy
+array that the native sweep writes through raw pointers, so it reaches
+torch only as a copy (`x_snapshot`): a tensor made by `torch.from_numpy`
+would alias it and change under the caller. Buckets keep their exact clique counts (the JAX
 engine pads them to classes that bound its jit signatures; eager PyTorch
 has no signatures to bound), while clique shapes keep the power-of-two
 classes that make cliques share pools. Device -> host reads (the
@@ -67,8 +82,9 @@ import torch
 import torch.nn.functional as tnf
 
 from gtsam_petercdev_torch.device import DeviceLike, resolve_device, resolve_dtype
+from gtsam_petercdev_torch.inference.kernels_np import _ptr
 from gtsam_petercdev_torch.inference.symbolic import ccolamd_ordering, symbolic_eliminate
-from gtsam_petercdev_torch.ops import cholesky, cholesky_v2
+from gtsam_petercdev_torch.ops import build_host, cholesky, cholesky_v2
 
 
 def _pad(x: int) -> int:
@@ -154,6 +170,183 @@ class CliqueRec:
     owned_fac: List[Tuple[int, int]] = field(default_factory=list)  # (group, row)
     owned_msg: List[int] = field(default_factory=list)  # persistent msg ids
     alive: bool = True
+    nslot: int = -1  # native-tree slot (host engine, float64)
+
+
+# ---------------------------------------------------------------------------
+# host engine (backend="numpy")
+# ---------------------------------------------------------------------------
+
+
+class HostPayload(NamedTuple):
+    """One clique's payload on the host engine, at its exact class shape."""
+
+    L: np.ndarray  # [fd, fd]
+    Linv: np.ndarray  # [nf, d, d]
+    W: np.ndarray  # [fd, sd]
+    y: np.ndarray  # [fd]
+    U: np.ndarray  # [sd, sd] dense F22 - W^T W
+    ug: np.ndarray  # [sd]
+
+
+def _np_pad_last(x, target):
+    pad = target - x.shape[-1]
+    if pad <= 0:
+        return x
+    return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+
+
+class _NpAccum:
+    """Scatter-add of rows into dst [R, W] (float64) through the native
+    scatter_add_rows: one C call a contribution, in order."""
+
+    def __init__(self, dst: np.ndarray):
+        self.dst = dst
+        self.W = dst.shape[1]
+        self.lib = build_host.load("solve_native")
+
+    def add(self, rows, vals):
+        rows = np.ascontiguousarray(np.asarray(rows, dtype=np.int64).ravel())
+        vals = np.ascontiguousarray(vals, dtype=np.float64)
+        self.lib.scatter_add_rows(_ptr(self.dst), _ptr(rows), _ptr(vals), rows.size, self.W, -1)
+
+
+class _NativeTree:
+    """Flat per-slot topology / payload tables for the native wildfire sweep
+    (`csrc/host/solve_native.cpp` wildfire_sweep). Slots are recycled through
+    a free list, so the tables track the peak of live cliques, not the
+    append-only clique ids. The payload addresses stay valid because the
+    engine's `payloads` own the arrays until the clique dies."""
+
+    def __init__(self, lib, d: int):
+        self.lib = lib
+        self.d = d
+        cap = 1024
+        self.cap = cap
+        self.parent = np.full(cap, -1, dtype=np.int32)
+        self.alive = np.zeros(cap, dtype=np.uint8)
+        self.nf = np.zeros(cap, dtype=np.int32)
+        self.ns = np.zeros(cap, dtype=np.int32)
+        self.nfr = np.zeros(cap, dtype=np.int32)  # real counts (<= class)
+        self.nsr = np.zeros(cap, dtype=np.int32)
+        self.pL = np.zeros(cap, dtype=np.uint64)
+        self.pLinv = np.zeros(cap, dtype=np.uint64)
+        self.pW = np.zeros(cap, dtype=np.uint64)
+        self.pY = np.zeros(cap, dtype=np.uint64)
+        self.fro_off = np.zeros(cap, dtype=np.int64)
+        self.sep_off = np.zeros(cap, dtype=np.int64)
+        self.free: List[int] = []
+        self.top = 0
+        self.buf_cap = 65536
+        self.fro_buf = np.zeros(self.buf_cap, dtype=np.int32)
+        self.sep_buf = np.zeros(self.buf_cap, dtype=np.int32)
+        self.cursor = 0  # shared cursor of both gid buffers
+        self.live_ints = 0  # gid entries owned by live slots
+        self.max_fd = d
+        self.seed_mask = np.zeros(cap, dtype=np.uint8)
+        self.scratch = np.zeros(4 * self.max_fd, dtype=np.float64)
+
+    def _grow_slots(self):
+        new = self.cap * 2
+        for name in ("parent", "alive", "nf", "ns", "nfr", "nsr", "pL", "pLinv", "pW", "pY",
+                     "fro_off", "sep_off", "seed_mask"):
+            old = getattr(self, name)
+            arr = np.zeros(new, dtype=old.dtype)
+            if name == "parent":
+                arr[:] = -1
+            arr[: self.cap] = old
+            setattr(self, name, arr)
+        self.cap = new
+
+    def _buf_reserve(self, n: int):
+        need = self.cursor + n
+        if need <= self.buf_cap:
+            return
+        while self.buf_cap < need:
+            self.buf_cap *= 2
+        for name in ("fro_buf", "sep_buf"):
+            old = getattr(self, name)
+            arr = np.zeros(self.buf_cap, dtype=np.int32)
+            arr[: self.cursor] = old[: self.cursor]
+            setattr(self, name, arr)
+
+    def alloc(self, rec: CliqueRec, pay: HostPayload) -> int:
+        nf, ns = rec.cls
+        nfr, nsr = len(rec.frontal), len(rec.separator)
+        if self.free:
+            s = self.free.pop()
+        else:
+            if self.top >= self.cap:
+                self._grow_slots()
+            s = self.top
+            self.top += 1
+        width = max(nfr, nsr)
+        self._buf_reserve(width)
+        off = self.cursor
+        self.fro_buf[off : off + nfr] = rec.frontal
+        self.sep_buf[off : off + nsr] = rec.separator
+        self.cursor += width
+        self.live_ints += width
+        self.parent[s] = -1
+        self.alive[s] = 1
+        self.nf[s], self.ns[s], self.nfr[s], self.nsr[s] = nf, ns, nfr, nsr
+        self.pL[s] = pay.L.ctypes.data
+        self.pLinv[s] = pay.Linv.ctypes.data
+        self.pW[s] = pay.W.ctypes.data
+        self.pY[s] = pay.y.ctypes.data
+        self.fro_off[s] = off
+        self.sep_off[s] = off
+        fd = nf * self.d
+        if fd > self.max_fd:
+            self.max_fd = fd
+            self.scratch = np.zeros(4 * fd, dtype=np.float64)
+        rec.nslot = s
+        return s
+
+    def set_parent(self, rec: CliqueRec, parent_rec: Optional[CliqueRec]):
+        self.parent[rec.nslot] = -1 if parent_rec is None else parent_rec.nslot
+
+    def on_free(self, rec: CliqueRec):
+        s = rec.nslot
+        if s < 0:
+            return
+        self.alive[s] = 0
+        self.pL[s] = self.pLinv[s] = self.pW[s] = self.pY[s] = 0
+        self.live_ints -= max(int(self.nfr[s]), int(self.nsr[s]))
+        self.free.append(s)
+        rec.nslot = -1
+
+    def maybe_compact(self, cliques):
+        """Rebuild the gid buffers when dead entries dominate."""
+        if self.cursor < (1 << 20) or self.cursor < 8 * max(1, self.live_ints):
+            return
+        new_f = np.zeros(self.buf_cap, dtype=np.int32)
+        new_s = np.zeros(self.buf_cap, dtype=np.int32)
+        cur = 0
+        for rec in cliques:
+            if rec is None or not rec.alive or rec.nslot < 0:
+                continue
+            s = rec.nslot
+            nfr, nsr = int(self.nfr[s]), int(self.nsr[s])
+            new_f[cur : cur + nfr] = self.fro_buf[self.fro_off[s] : self.fro_off[s] + nfr]
+            new_s[cur : cur + nsr] = self.sep_buf[self.sep_off[s] : self.sep_off[s] + nsr]
+            self.fro_off[s] = cur
+            self.sep_off[s] = cur
+            cur += max(nfr, nsr)
+        self.fro_buf, self.sep_buf, self.cursor = new_f, new_s, cur
+
+    def sweep(self, x: np.ndarray, xcap: int, seeds: List[int], threshold: float) -> int:
+        """The wildfire descent over the whole tree from the seed slots,
+        writing x in place; returns the number of cliques solved."""
+        dirty = np.zeros(xcap + 1, dtype=np.uint8)
+        self.seed_mask[: self.top] = 0
+        seeds_np = np.asarray(seeds, dtype=np.int32)
+        return int(self.lib.wildfire_sweep(
+            self.top, _ptr(self.parent), _ptr(self.alive), _ptr(self.nf), _ptr(self.ns),
+            _ptr(self.nfr), _ptr(self.nsr), _ptr(self.pL), _ptr(self.pLinv), _ptr(self.pW),
+            _ptr(self.pY), _ptr(self.fro_off), _ptr(self.sep_off), _ptr(self.fro_buf),
+            _ptr(self.sep_buf), _ptr(x), self.d, xcap, _ptr(seeds_np), len(seeds_np),
+            float(threshold), _ptr(dirty), _ptr(self.seed_mask), _ptr(self.scratch)))
 
 
 @dataclass
@@ -165,7 +358,7 @@ class FactorGroup:
     dims: Tuple[int, ...]
     sign: float
     cap: int
-    A: Tuple[torch.Tensor, ...]  # per slot [cap, d, dim_k]
+    A: Tuple[torch.Tensor, ...]  # per slot [cap, d, dim_k] (numpy on the host engine)
     b: torch.Tensor  # [cap, d]
     keys: np.ndarray  # [cap, K] gids (host)
     n: int = 0
@@ -196,6 +389,8 @@ class _LocalPlan:
     # gix rounds over M*nsc rows, entry_order [M] indices into the update's
     # msg entries, own_lcid [M])
     msg: List[Tuple]
+    # The host engine's plans hold the destinations themselves (numpy
+    # arrays, padded slots at the trash rows) where these hold AddRounds.
     eye: "AddRounds"  # identity on padded frontal blocks and fake dims
     eye_vals: torch.Tensor  # [P, d*d]
     ext: List[Tuple["AddRounds", "AddRounds"]]  # per level: U blocks, ug rows
@@ -209,10 +404,18 @@ class _LocalPlan:
 
     @property
     def nbytes(self) -> int:
-        rounds = [self.eye] + [r for e in self.fac for r in e[2:4]]
-        rounds += [r for e in self.msg for r in e[3:5]] + [r for e in self.ext for r in e]
-        return self.eye_vals.numel() * self.eye_vals.element_size() + sum(
-            r.flat.numel() * r.flat.element_size() for r in rounds)
+        maps = [self.eye, self.eye_vals] + [r for e in self.fac for r in e[2:4]]
+        maps += [r for e in self.msg for r in e[3:5]] + [r for e in self.ext for r in e]
+        return sum(_nbytes(m) for m in maps)
+
+
+def _nbytes(m) -> int:
+    """Bytes of one plan map: a host array (host engine), a tensor or the
+    upload behind an AddRounds."""
+    if isinstance(m, np.ndarray):
+        return m.nbytes
+    t = m.flat if isinstance(m, AddRounds) else m
+    return t.numel() * t.element_size()
 
 
 class AddRounds(NamedTuple):
@@ -371,6 +574,24 @@ def _level(pool, gp, boff: int, goff: int, B: int, nf: int, ns: int, d: int,
     return out
 
 
+def _np_scatter_group(acc_pool: _NpAccum, acc_gp: _NpAccum, A, b, blk, gix, sign: float,
+                      d: int) -> None:
+    """Host engine: add one factor group's Hessian blocks A_k^T A_l and
+    gradients A_k^T b (blk [N, K, K], gix [N, K] destinations)."""
+    K, N = len(A), b.shape[0]
+    for k in range(K):
+        gk = np.matmul(A[k].transpose(0, 2, 1), b[:, :, None])[:, :, 0]
+        if sign != 1.0:
+            gk = gk * sign
+        acc_gp.add(gix[:, k], _np_pad_last(gk, d))
+        for l in range(K):
+            v = np.matmul(A[k].transpose(0, 2, 1), A[l])
+            if sign != 1.0:
+                v = v * sign
+            v = np.pad(v, ((0, 0), (0, d - v.shape[1]), (0, d - v.shape[2])))
+            acc_pool.add(blk[:, k, l], v.reshape(N, d * d))
+
+
 def _wild(pc: PoolClass, rows, sep_idx, fro_idx, x, nf: int, ns: int, d: int) -> torch.Tensor:
     """One wildfire round for one shape class: K2 solves the cliques at pool
     `rows` given their separators' x (L^T x_f = y - W x_s), writes their
@@ -399,18 +620,39 @@ class IncrementalEngine:
     The nonlinear wrapper (nonlinear/isam2.py) owns linearization points
     and the relinearization policy; this engine owns the Bayes tree, the
     cached linear factors, and the delta x [n, d] (gid order, padded to d),
-    all on `device` (default "cuda"; raises without a card unless "cpu")."""
+    all on `device` (default "cuda"; raises without a card unless "cpu").
 
-    def __init__(self, d: int, dtype=torch.float64, device: DeviceLike = "cuda"):
+    backend: "torch" (the pools and the bucket kernels on `device`) or
+    "numpy" (the host engine: exact per-clique numpy payloads and the native
+    sweeps; `device` must be "cpu", else ValueError)."""
+
+    def __init__(self, d: int, dtype=torch.float64, device: DeviceLike = "cuda",
+                 backend: str = "torch"):
+        if backend not in ("torch", "numpy"):
+            raise ValueError(f"backend must be 'torch' or 'numpy', not {backend!r}")
+        if backend == "numpy" and torch.device(device).type != "cpu":
+            raise ValueError(f"backend='numpy' is the host engine: it runs on device='cpu', "
+                             f"not {device!r}")
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
+        if backend == "numpy" and self.dtype != torch.float64:
+            raise ValueError(f"backend='numpy' is the host engine: its native sweeps run in "
+                             f"float64, not {self.dtype}")
+        self.backend = backend
+        self._np = backend == "numpy"
+        self._npdtype = torch.empty((), dtype=self.dtype).numpy().dtype
         self.d = d
         self.n = 0  # variables (gids 0..n-1)
         self.var_dims = np.zeros(0, dtype=np.int64)
         self.xcap = 1024
-        self.x = torch.zeros((self.xcap + 1, d), dtype=self.dtype, device=self.device)
+        self.x = self._zeros(self.xcap + 1, d)
         self.pools: Dict[Tuple[int, int], PoolClass] = {}
         self.msg_pools: Dict[int, PoolClass] = {}  # persistent marginals
+        # host engine: per-clique payloads by cid and marginal messages by
+        # mid, each freed with its owner; the native sweep's tables
+        self.payloads: Dict[int, HostPayload] = {}
+        self.msg_payloads: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._nat = _NativeTree(build_host.load("solve_native"), d) if self._np else None
         self.cliques: List = []  # CliqueRec or None (retired)
         self.var_clique: Dict[int, int] = {}  # gid -> cid (frontal owner)
         self.groups: List[FactorGroup] = []
@@ -441,6 +683,12 @@ class IncrementalEngine:
         self.n_reads += 1
         return t.cpu().numpy()
 
+    def _zeros(self, *shape):
+        """A zero store of the engine: numpy on the host engine, else a tensor."""
+        if self._np:
+            return np.zeros(shape, dtype=self._npdtype)
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
     # -- variables / factors ------------------------------------------------
 
     def add_variables(self, dims: Sequence[int]) -> List[int]:
@@ -451,7 +699,7 @@ class IncrementalEngine:
             old = self.xcap
             while self.n > self.xcap:
                 self.xcap *= 2
-            nx = torch.zeros((self.xcap + 1, self.d), dtype=self.dtype, device=self.device)
+            nx = self._zeros(self.xcap + 1, self.d)
             nx[:old] = self.x[:old]
             self.x = nx
         return gids
@@ -462,7 +710,7 @@ class IncrementalEngine:
             return g
         g = len(self.groups)
         cap = 64
-        z = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
+        z = self._zeros
         self.groups.append(FactorGroup(
             gid=g, K=K, dims=tuple(dims), sign=float(sign), cap=cap,
             A=tuple(z(cap, self.d, dk) for dk in dims), b=z(cap, self.d),
@@ -474,7 +722,7 @@ class IncrementalEngine:
         cap = fg.cap
         while cap < need:
             cap *= 2
-        z = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
+        z = self._zeros
         A = tuple(z(cap, self.d, dk) for dk in fg.dims)
         for An, Ak in zip(A, fg.A):
             An[: fg.cap] = Ak
@@ -502,6 +750,12 @@ class IncrementalEngine:
     def set_factor_rows(self, g: int, rows, A, b):
         """Overwrite the cached linearization of existing rows (relinearize)."""
         fg = self.groups[g]
+        if self._np:
+            idx = np.asarray(rows, dtype=np.int64)
+            for Ak, An in zip(fg.A, A):
+                Ak[idx] = An.detach().cpu().numpy()
+            fg.b[idx] = b.detach().cpu().numpy()
+            return
         _set_rows(fg.A, fg.b, self._upload(rows), A, b)
 
     def remove_factor_units(self, units) -> Set[int]:
@@ -629,17 +883,18 @@ class IncrementalEngine:
             lids = lid_arr[fg.keys[rows]]
             fac_entries.append((g, rows, lids))
             sig_parts.append((g, lids.shape[0], lids.tobytes()))
-        # (src, pool key, pool row, scope lids)
+        # (src, pool key, ref, scope lids); ref is the pool row, on the host
+        # engine the cid / mid that keys the payload
         msg_entries = []
         for cid in orphan_cids:
             c = self.cliques[cid]
             sc = lid_arr[np.asarray(c.separator, dtype=np.int64)]
-            msg_entries.append(("clq", c.cls, c.row, sc))
+            msg_entries.append(("clq", c.cls, cid if self._np else c.row, sc))
             sig_parts.append(("clq", c.cls, sc.tobytes()))
         for mid in msg_ids:
             mr = self.msgs[mid]
             sc = lid_arr[np.asarray(mr.scope, dtype=np.int64)]
-            msg_entries.append(("msg", mr.ns, mr.row, sc))
+            msg_entries.append(("msg", mr.ns, mid if self._np else mr.row, sc))
             sig_parts.append(("msg", mr.ns, sc.tobytes()))
         first_l = frozenset(int(lid_arr[g]) for g in first if lid_arr[g] >= 0)
         last_l = frozenset(int(lid_arr[g]) for g in new_last if lid_arr[g] >= 0) - first_l
@@ -665,15 +920,23 @@ class IncrementalEngine:
         own_fac: Dict[int, List[Tuple[int, int]]] = {}
         own_msg: Dict[int, List[int]] = {}
         orphan_owner: Dict[int, int] = {}  # orphan entry idx -> owner lcid
-        pool, gp = _new_pool(plan.n_blocks, plan.n_grows, d, self.dtype, self.device)
+        if self._np:
+            pool = np.zeros((plan.n_blocks + 1, d * d), dtype=self._npdtype)
+            gp = np.zeros((plan.n_grows + 1, d), dtype=self._npdtype)
+            acc_pool, acc_gp = _NpAccum(pool), _NpAccum(gp)
+        else:
+            pool, gp = _new_pool(plan.n_blocks, plan.n_grows, d, self.dtype, self.device)
         for (g, rows, _), (_, N, blk, gix, own_lcid) in zip(fac_entries, plan.fac):
             fg = self.groups[g]
-            A, b = _gather_fac(fg.A, fg.b, self._upload(rows))
-            _scatter_group(pool, gp, A, b, blk, gix, fg.sign, d)
+            if self._np:
+                _np_scatter_group(acc_pool, acc_gp, tuple(Ak[rows] for Ak in fg.A), fg.b[rows],
+                                  blk, gix, fg.sign, d)
+            else:
+                A, b = _gather_fac(fg.A, fg.b, self._upload(rows))
+                _scatter_group(pool, gp, A, b, blk, gix, fg.sign, d)
             for i in range(N):
                 own_fac.setdefault(int(own_lcid[i]), []).append((g, int(rows[i])))
         for (src, pkey, nsc, blk, gix, order, own_lcid) in plan.msg:
-            pc = self.pools[pkey] if src == "clq" else self.msg_pools[pkey]
             prow = np.empty(len(order), dtype=np.int64)
             for mi, ei in enumerate(order):
                 prow[mi] = msg_entries[ei][2]
@@ -682,44 +945,66 @@ class IncrementalEngine:
                         msg_ids[ei - len(orphan_cids)])
                 else:
                     orphan_owner[ei] = int(own_lcid[mi])
-            U, ug = _gather_msgs(pc.arrays.U, pc.arrays.ug, self._upload(prow))
-            _scatter_msg_class(pool, gp, U, ug, blk, gix)
-        _scatter_eye(pool, plan.eye, plan.eye_vals)
+            if self._np:
+                msgs = ([self.payloads[r][4:] for r in prow.tolist()] if src == "clq"
+                        else [self.msg_payloads[r] for r in prow.tolist()])  # (U, ug)
+                M = len(msgs)
+                U = np.stack([u for u, _ in msgs])
+                Ub = U.reshape(M, nsc, d, nsc, d).transpose(0, 1, 3, 2, 4).reshape(-1, d * d)
+                acc_pool.add(blk.reshape(-1), Ub)
+                acc_gp.add(gix.reshape(-1), np.stack([ug for _, ug in msgs]).reshape(-1, d))
+            else:
+                pc = self.pools[pkey] if src == "clq" else self.msg_pools[pkey]
+                U, ug = _gather_msgs(pc.arrays.U, pc.arrays.ug, self._upload(prow))
+                _scatter_msg_class(pool, gp, U, ug, blk, gix)
+        if self._np:
+            acc_pool.add(plan.eye, plan.eye_vals)
+        else:
+            _scatter_eye(pool, plan.eye, plan.eye_vals)
 
         # ---- bottom-up level sweep ----
         outs = []
-        bad = torch.zeros((), dtype=torch.int32, device=self.device)
-        for li, (nf, ns, B, _) in enumerate(plan.levels_meta):
-            boff, goff = plan.lvl_offsets[li]
-            ext, extg = plan.ext[li]
-            out = _level(pool, gp, boff, goff, B, nf, ns, d, ext, extg)
-            bad = bad + out["bad"]
-            outs.append(out)
+        if self._np:  # one native call for the whole sweep
+            nat_pay, bad = self._native_eliminate(plan, pool, gp)
+        else:
+            bad = torch.zeros((), dtype=torch.int32, device=self.device)
+            for li, (nf, ns, B, _) in enumerate(plan.levels_meta):
+                boff, goff = plan.lvl_offsets[li]
+                ext, extg = plan.ext[li]
+                out = _level(pool, gp, boff, goff, B, nf, ns, d, ext, extg)
+                bad = bad + out["bad"]
+                outs.append(out)
 
-        # ---- retire dead cliques, free pool rows ----
+        # ---- retire dead cliques, free pool rows / payloads ----
         for cid in dead:
             c = self.cliques[cid]
             c.alive = False
-            self.pools[c.cls].free.append(c.row)
+            if self._np:
+                self._nat.on_free(c)
+                self.payloads.pop(cid, None)
+            else:
+                self.pools[c.cls].free.append(c.row)
             self.cliques[cid] = None
         self.n_live -= len(dead)
 
-        # ---- create new clique records + scatter payloads into pools ----
+        # ---- create new clique records + their payloads ----
         new_by_level: List[List[int]] = []
         local2global: Dict[int, int] = {}
         for li, (nf, ns, B, clqs) in enumerate(plan.levels_meta):
             cls = (nf, ns)
-            pc = self.pools.get(cls)
-            if pc is None:
+            pc = None if self._np else self.pools.get(cls)
+            if pc is None and not self._np:
                 pc = self.pools[cls] = PoolClass(
                     nf, ns, 0, _make_pool(nf, ns, d, 0, self.dtype, self.device))
             rows_np = np.empty(B, dtype=np.int64)
             lv_cids = []
             for i, (pcid, fro_lv, sep_lv, _) in enumerate(clqs):
-                r = pc.alloc()
-                while r < 0:
-                    self.pools[cls] = pc = _grow_pool(pc, d)
+                r = -1
+                if not self._np:
                     r = pc.alloc()
+                    while r < 0:
+                        self.pools[cls] = pc = _grow_pool(pc, d)
+                        r = pc.alloc()
                 rows_np[i] = r
                 gcid = len(self.cliques)
                 rec = CliqueRec(
@@ -732,7 +1017,11 @@ class IncrementalEngine:
                 lv_cids.append(gcid)
                 for gid in rec.frontal:
                     self.var_clique[gid] = gcid
-            _scatter_pool(pc.arrays, self._upload(rows_np), outs[li])
+                if self._np:  # the native sweep wrote the payload in place
+                    pay = self.payloads[gcid] = nat_pay[li][i]
+                    self._nat.alloc(rec, pay)
+            if not self._np:
+                _scatter_pool(pc.arrays, self._upload(rows_np), outs[li])
             new_by_level.append(lv_cids)
         self.n_live += plan.n_cliques
 
@@ -743,24 +1032,73 @@ class IncrementalEngine:
                     gcid, pg = local2global[pcid], local2global[par]
                     self.cliques[gcid].parent = pg
                     self.cliques[pg].children.add(gcid)
+                    if self._np:
+                        self._nat.set_parent(self.cliques[gcid], self.cliques[pg])
         for ei, cid in enumerate(orphan_cids):
             pg = local2global[orphan_owner[ei]]
             self.cliques[cid].parent = pg
             self.cliques[pg].children.add(cid)
+            if self._np:
+                self._nat.set_parent(self.cliques[cid], self.cliques[pg])
+        if self._np:
+            self._nat.maybe_compact(self.cliques)
 
         # ---- wildfire back-substitution from the new cliques ----
         n_rounds = self._wildfire(new_by_level, wildfire_threshold)
         return {"n_reeliminated": plan.n_cliques, "bad_pivots": bad,
                 "wildfire_rounds": n_rounds}
 
+    def _native_eliminate(self, plan: _LocalPlan, pool: np.ndarray, gp: np.ndarray):
+        """The whole bottom-up level sweep in ONE native call (eliminate_sweep:
+        each clique's front gathered from the block pool, factored straight
+        into its payload arrays, its Schur complement extend-added into the
+        parent's blocks), the per-clique payloads allocated first. Returns
+        the level-major payloads and the bad-pivot count."""
+        d = self.d
+        nl = len(plan.levels_meta)
+        meta = np.zeros((5, nl), dtype=np.int64)  # nf, ns, B, block offset, row offset
+        extp = np.empty(nl, np.uint64)
+        extgp = np.empty(nl, np.uint64)
+        total = sum(lv[2] for lv in plan.levels_meta)
+        pp = np.empty((6, total), np.uint64)
+        nat_pay: List[List[HostPayload]] = []
+        ci, max_m = 0, 1
+        for li, (nf, ns, B, _) in enumerate(plan.levels_meta):
+            fd, sd = nf * d, ns * d
+            max_m = max(max_m, fd + sd)
+            meta[:, li] = (nf, ns, B) + tuple(plan.lvl_offsets[li])
+            ext, extg = plan.ext[li]  # int32, contiguous, kept alive by the plan
+            extp[li], extgp[li] = ext.ctypes.data, extg.ctypes.data
+            # one allocation a clique, not a level arena: a view of an arena
+            # would pin the whole level while one of its cliques lives
+            lv_pays = []
+            for _ in range(B):
+                pay = HostPayload(L=np.empty((fd, fd)), Linv=np.empty((nf, d, d)),
+                                  W=np.empty((fd, sd)), y=np.empty(fd), U=np.empty((sd, sd)),
+                                  ug=np.empty(sd))
+                lv_pays.append(pay)
+                pp[:, ci] = [a.ctypes.data for a in pay]
+                ci += 1
+            nat_pay.append(lv_pays)
+        work = np.empty(max_m * (max_m + 1))
+        bad = self._nat.lib.eliminate_sweep(
+            _ptr(pool), _ptr(gp), d, nl, *(_ptr(meta[k]) for k in range(5)), _ptr(extp),
+            _ptr(extgp), *(_ptr(pp[k]) for k in range(6)), 1e-10, _ptr(work))
+        return nat_pay, int(bad)
+
     def _build_plan(self, lva: np.ndarray, fac_entries, msg_entries, first_l: frozenset,
                     last_l: frozenset) -> _LocalPlan:
         """Host symbolic planning for one local-problem STRUCTURE (cache
         miss only): ordering, supernodes, level layout, all index maps,
-        uploaded here once."""
+        uploaded here once. The host engine keeps exact clique shapes and the
+        maps' destinations as host arrays."""
         d = self.d
         m = len(lva)
         up = self._upload
+        if self._np:
+            rounds = lambda dest, trash: np.asarray(dest, dtype=np.int64)
+        else:
+            rounds = lambda dest, trash: _plan_rounds(dest, trash, up)
         factor_vars = [lids for (_, _, lids) in fac_entries] + [
             sc[None, :] for (_, _, _, sc) in msg_entries]
 
@@ -779,7 +1117,8 @@ class IncrementalEngine:
             + [v for v in base if v in last_l], dtype=np.int64)
         plan = symbolic_eliminate(
             m, factor_vars, d, ordering=order, max_buckets_per_level=1,
-            no_merge_across=first_l if first_l else None, pad_fn=_pad_class)
+            no_merge_across=first_l if first_l else None,
+            pad_fn=(lambda x: max(1, x)) if self._np else _pad_class)
 
         # ---- layout: one bucket per level, cliques contiguous ----
         iperm = plan.iperm
@@ -824,8 +1163,7 @@ class IncrementalEngine:
             blk = (blk_base[own][:, None, None] + pos[:, :, None] * mb_of[own][:, None, None]
                    + pos[:, None, :])
             gix = g_base[own][:, None] + pos
-            plan_fac.append((g, N, _plan_rounds(blk, trash_blk, up),
-                             _plan_rounds(gix, trash_g, up), own.copy()))
+            plan_fac.append((g, N, rounds(blk, trash_blk), rounds(gix, trash_g), own.copy()))
 
         # ---- message scatter maps, one entry per (source, class) ----
         by_class: Dict[Tuple, List[int]] = {}
@@ -847,8 +1185,8 @@ class IncrementalEngine:
                 nr = len(pv)
                 blk[mi, :nr, :nr] = blk_base[ownc.cid] + ps[:, None] * mb_of[ownc.cid] + ps[None, :]
                 gix[mi, :nr] = g_base[ownc.cid] + ps
-            plan_msg.append((src, pkey, nsc, _plan_rounds(blk, trash_blk, up),
-                             _plan_rounds(gix, trash_g, up), list(idxs), own_lcid))
+            plan_msg.append((src, pkey, nsc, rounds(blk, trash_blk), rounds(gix, trash_g),
+                             list(idxs), own_lcid))
 
         # ---- identity on padded frontal blocks and on fake dims ----
         eye_rows, eye_vals = [], []
@@ -882,7 +1220,11 @@ class IncrementalEngine:
                     ext[i, :nr, :nr] = (blk_base[p.cid] + ppos[:, None] * mb_of[p.cid]
                                         + ppos[None, :])
                     extg[i, :nr] = g_base[p.cid] + ppos
-            ext_maps.append((_plan_rounds(ext, trash_blk, up), _plan_rounds(extg, trash_g, up)))
+            if self._np:  # the native sweep reads them as int32
+                ext_maps.append((np.ascontiguousarray(ext, dtype=np.int32),
+                                 np.ascontiguousarray(extg, dtype=np.int32)))
+            else:
+                ext_maps.append((rounds(ext, trash_blk), rounds(extg, trash_g)))
 
         # ---- per-level clique metadata (for CliqueRec construction) ----
         levels_meta = []
@@ -893,8 +1235,10 @@ class IncrementalEngine:
             levels_meta.append((bk.nf, bk.ns, len(bk.cliques), clqs))
 
         return _LocalPlan(
-            fac=plan_fac, msg=plan_msg, eye=_plan_rounds(eye_rows, trash_blk, up),
-            eye_vals=up(eye_vals_np, dtype=self.dtype), ext=ext_maps, levels_meta=levels_meta,
+            fac=plan_fac, msg=plan_msg, eye=rounds(eye_rows, trash_blk),
+            eye_vals=(eye_vals_np.astype(self._npdtype) if self._np
+                      else up(eye_vals_np, dtype=self.dtype)),
+            ext=ext_maps, levels_meta=levels_meta,
             n_cliques=len(cliques), n_blocks=n_blocks, n_grows=n_grows,
             lvl_offsets=tuple(lvl_offsets))
 
@@ -902,7 +1246,8 @@ class IncrementalEngine:
 
     def _wild_round(self, cids: List[int]) -> Dict[int, float]:
         """Back-substitute one frontier of cliques (parents all solved): one
-        K2 launch per shape class, one device -> host read of the changes."""
+        K2 launch per shape class, one device -> host read of the changes
+        (the card engine's; the host engine descends in _NativeTree.sweep)."""
         by_cls: Dict[Tuple[int, int], List[int]] = {}
         for cid in cids:
             by_cls.setdefault(self.cliques[cid].cls, []).append(cid)
@@ -928,7 +1273,12 @@ class IncrementalEngine:
     def _wildfire(self, new_by_level: List[List[int]], threshold: float) -> int:
         """Frontier descent: new cliques top-down (forced), then into old
         subtrees while the separator delta keeps changing by > threshold
-        (ISAM2Clique::optimizeWildfireNode semantics)."""
+        (ISAM2Clique::optimizeWildfireNode semantics). The host engine runs
+        the whole descent in one native call and returns the number of
+        cliques it solved; the card engine returns the number of rounds."""
+        if self._np:
+            seeds = [self.cliques[cid].nslot for lv in new_by_level for cid in lv]
+            return self._nat.sweep(self.x, self.xcap, seeds, threshold)
         dirty: Set[int] = set()
         new_set = {cid for lv in new_by_level for cid in lv}
         n_rounds = 0
@@ -962,16 +1312,46 @@ class IncrementalEngine:
 
     # -- delta access -------------------------------------------------------------
 
+    def x_snapshot(self) -> torch.Tensor:
+        """The delta [xcap + 1, d] as a tensor that shares no memory with the
+        engine. The host engine's x is a numpy array written in place (the
+        native sweep through raw pointers, zero_delta_rows), so a tensor of
+        `torch.from_numpy(x)` would change under its holder: every hand-off
+        of the host delta to torch goes through this copy."""
+        return torch.from_numpy(self.x.copy()) if self._np else self.x.clone()
+
+    def delta_at(self, idx, dim: int) -> torch.Tensor:
+        """Delta rows x[idx, :dim] (idx an int or an index tensor on the
+        engine's device)."""
+        x = self.x_snapshot() if self._np else self.x
+        return x[idx, :dim]
+
     def delta_rows(self, gids, dim: int) -> torch.Tensor:
         """Delta rows [len(gids), dim] of a set of variables."""
-        return self.x[self._upload(gids), :dim]
+        return self.delta_at(self._upload(gids), dim)
 
     def zero_delta_rows(self, gids) -> None:
+        if self._np:
+            self.x[np.asarray(gids, dtype=np.int64)] = 0.0
+            return
         _zero_rows(self.x, self._upload(gids))
 
     def var_max_delta(self) -> np.ndarray:
         """max |delta| per gid (relinearization marking; one host read)."""
+        if self._np:
+            return np.max(np.abs(self.x[: self.n]), axis=1)
         return self._read(_max_abs(self.x[: self.n]))
+
+    def clique_factors(self, cls: Tuple[int, int], cliques: List[CliqueRec], rows: torch.Tensor):
+        """(L, Linv, W) [B, ...] of cliques of one shape class as tensors on
+        the engine's device; `rows` are their pool rows, uploaded (unused by
+        the host engine, which stacks copies of the payloads)."""
+        if self._np:
+            return tuple(torch.from_numpy(np.stack([getattr(self.payloads[c.cid], k)
+                                                    for c in cliques]))
+                         for k in ("L", "Linv", "W"))
+        a = self.pools[cls].arrays
+        return a.L.index_select(0, rows), a.Linv.index_select(0, rows), a.W.index_select(0, rows)
 
     # -- marginalization ------------------------------------------------------------
 
@@ -1018,18 +1398,23 @@ class IncrementalEngine:
             # only the top-most marginal cliques (all-live separator) leave a
             # message: lower ones flowed into their dead parents in phase 1
             if keep_messages and live_scope and not any(v in gset for v in live_scope):
-                mp = self.msg_pools.get(nsc)
-                if mp is None:
-                    mp = self.msg_pools[nsc] = PoolClass(
-                        0, nsc, 0, _make_pool(0, nsc, self.d, 0, self.dtype, self.device))
-                r = mp.alloc()
-                while r < 0:
-                    self.msg_pools[nsc] = mp = _grow_pool(mp, self.d)
-                    r = mp.alloc()
-                src = self.pools[c.cls].arrays
-                _copy_msg(mp.arrays.U, mp.arrays.ug, self._upload([r]), src.U, src.ug,
-                          self._upload([c.row]))
                 mid = len(self.msgs)
+                if self._np:
+                    r = -1
+                    pay = self.payloads[c.cid]
+                    self.msg_payloads[mid] = (pay.U.copy(), pay.ug.copy())
+                else:
+                    mp = self.msg_pools.get(nsc)
+                    if mp is None:
+                        mp = self.msg_pools[nsc] = PoolClass(
+                            0, nsc, 0, _make_pool(0, nsc, self.d, 0, self.dtype, self.device))
+                    r = mp.alloc()
+                    while r < 0:
+                        self.msg_pools[nsc] = mp = _grow_pool(mp, self.d)
+                        r = mp.alloc()
+                    src = self.pools[c.cls].arrays
+                    _copy_msg(mp.arrays.U, mp.arrays.ug, self._upload([r]), src.U, src.ug,
+                              self._upload([c.row]))
                 self.msgs.append(MsgRec(mid=mid, ns=nsc, row=r, scope=live_scope))
                 # owner: the live clique where the first separator var is frontal
                 self.cliques[self.var_clique[live_scope[0]]].owned_msg.append(mid)
@@ -1037,7 +1422,11 @@ class IncrementalEngine:
             # retired: their information now lives in the marginal factor
             if c.parent >= 0 and self.cliques[c.parent] is not None:
                 self.cliques[c.parent].children.discard(c.cid)
-            self.pools[c.cls].free.append(c.row)
+            if self._np:
+                self._nat.on_free(c)
+                self.payloads.pop(c.cid, None)
+            else:
+                self.pools[c.cls].free.append(c.row)
             for gid in c.frontal:
                 self.var_clique.pop(gid, None)
             retired = set(c.owned_fac)
@@ -1052,7 +1441,10 @@ class IncrementalEngine:
                 mr = self.msgs[mid]
                 if mr.alive:  # its information flowed into this clique: row reusable
                     mr.alive = False
-                    self.msg_pools[mr.ns].free.append(mr.row)
+                    if self._np:
+                        self.msg_payloads.pop(mid, None)
+                    else:
+                        self.msg_pools[mr.ns].free.append(mr.row)
             self.cliques[c.cid] = None
             self.n_live -= 1
         # tombstone the variables (their x rows stay zero)

@@ -109,11 +109,9 @@ class TreeMarginals:
                     gather[i, :nr, :nr] = (self._base[p.cid] + ppos[:, None] * mb_p
                                            + ppos[None, :])
             dev = engine._upload(idx)
-            a = engine.pools[(nf, ns)].arrays
-            r = dev[:B]
-            _marg_level(G, a.L.index_select(0, r), a.Linv.index_select(0, r),
-                        a.W.index_select(0, r), dev[B : B + B * ns * ns],
-                        dev[B + B * ns * ns :], nf, ns, d)
+            L, Linv, W = engine.clique_factors((nf, ns), group, dev[:B])
+            _marg_level(G, L, Linv, W, dev[B : B + B * ns * ns], dev[B + B * ns * ns :],
+                        nf, ns, d)
             self.n_steps += 1
         self._G = G
 

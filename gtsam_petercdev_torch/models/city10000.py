@@ -43,7 +43,8 @@ from gtsam_petercdev_torch.geometry import pose2
 from gtsam_petercdev_torch.linear import noise
 from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
 from gtsam_petercdev_torch.nonlinear.fixed_lag import IncrementalFixedLagSmoother
-from gtsam_petercdev_torch.nonlinear.isam2 import ISAM2, ISAM2Params, ISAM2Result
+from gtsam_petercdev_torch.nonlinear.isam2 import (
+    ISAM2, ISAM2Params, ISAM2Result, check_engine_backend)
 from gtsam_petercdev_torch.nonlinear.values import Values
 from gtsam_petercdev_torch.slam.factors import between_factor, prior_factor
 from gtsam_petercdev_torch.utils import serialization
@@ -96,6 +97,7 @@ def run_city10000(
     checkpoint_path: Optional[str] = None,
     step_cb: Optional[Callable[[int, ISAM2], None]] = None,
     resume_from: Optional[str] = None,
+    engine_backend: str = "torch",
 ) -> CityResult:
     """Run the harness over the file's lines. partial_cb gets a CityResult
     every `progress_every` updates, and the ISAM2 is saved to
@@ -103,7 +105,10 @@ def run_city10000(
     line's update (k from 0; a profiler window's hook). `resume_from`: an
     ISAM2 checkpoint of a run of the same file, loaded onto `device`; the
     run continues after the lines it holds (its updates, less the prior's),
-    with the other arguments as that run had them."""
+    with the other arguments as that run had them. `engine_backend`: as
+    ISAM2Params' ("numpy", the host engine, needs device="cpu" and float64,
+    else ValueError)."""
+    check_engine_backend(engine_backend, device, dtype)
     dev = resolve_device(device)
     sigs = _noise_models(dtype, dev)
     new = lambda: (NonlinearFactorGraph(device=dev, dtype=dtype), Values(device=dev, dtype=dtype))
@@ -118,7 +123,8 @@ def run_city10000(
     else:
         isam = ISAM2(ISAM2Params(relinearize_threshold=relinearize_threshold,
                                  relinearize_skip=relinearize_skip,
-                                 wildfire_threshold=wildfire_threshold, device=dev, dtype=dtype))
+                                 wildfire_threshold=wildfire_threshold, device=dev, dtype=dtype,
+                                 engine_backend=engine_backend))
         isam.update(*_prior(new(), sigs[0]))
 
     t_start = time.perf_counter()
@@ -211,17 +217,21 @@ def run_city10000_fixed_lag(
     lag: float,
     device: DeviceLike = "cuda",
     step_cb: Optional[Callable[[int, IncrementalFixedLagSmoother], None]] = None,
+    engine_backend: str = "torch",
 ) -> FixedLagCityResult:
     """The file's lines through an IncrementalFixedLagSmoother of `lag`
     poses at City10000's parameters (float64, run_city10000's defaults), on
     `device` (default "cuda"). Each update (smoother.update: the ISAM2
     update, then marginalize_leaves of the poses out of the lag) is timed;
-    step_cb(k, smoother) runs just before the k-th update fed."""
+    step_cb(k, smoother) runs just before the k-th update fed. `engine_backend`:
+    as run_city10000's."""
+    check_engine_backend(engine_backend, device)
     dev = resolve_device(device)
     dtype = torch.float64
     sigs = _noise_models(dtype, dev)
     sm = IncrementalFixedLagSmoother(lag, ISAM2Params(
-        relinearize_threshold=0.01, relinearize_skip=1, wildfire_threshold=0.0, dtype=dtype),
+        relinearize_threshold=0.01, relinearize_skip=1, wildfire_threshold=0.0, dtype=dtype,
+        engine_backend=engine_backend),
         device=dev)
     new = lambda: (NonlinearFactorGraph(device=dev, dtype=dtype), Values(device=dev, dtype=dtype))
     sm.update(*_prior(new(), sigs[0]), {0: 0.0})

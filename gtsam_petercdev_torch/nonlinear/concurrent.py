@@ -200,7 +200,8 @@ class ConcurrentIncrementalSmoother:
     synchronizations its updates are iSAM2 updates; at each synchronize the
     filter's summarized prior is swapped by factor removal
     (ISAM2.remove_factors), not a batch rebuild. The ISAM2 runs on
-    `device` (default "cuda")."""
+    `device` (default "cuda"; the host engine, `isam_params.engine_backend`
+    "numpy", needs device="cpu" and raises ValueError on any other)."""
 
     def __init__(self, isam_params: Optional[ISAM2Params] = None,
                  *, device: DeviceLike = "cuda"):
@@ -247,7 +248,8 @@ class ConcurrentIncrementalSmoother:
 
 class ConcurrentIncrementalFilter:
     """Sensor-rate filter running as iSAM2 (ConcurrentIncrementalFilter.h:30)
-    on `device` (default "cuda"). Moved-out factors leave the tree by unit
+    on `device` (default "cuda"; the host engine, `isam_params.engine_backend=
+    "numpy"`, needs device="cpu"). Moved-out factors leave the tree by unit
     removal; moved-out variables are dropped by a marginalization that
     keeps no message; the smoother's separator marginal is held as a
     removable prior."""

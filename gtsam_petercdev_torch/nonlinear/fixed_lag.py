@@ -212,7 +212,9 @@ class IncrementalFixedLagSmoother:
     the window. Where a key is not leaf-pure this round (a new loop closure
     straddles the boundary), the keys are retried one by one and the ones
     that still fail are deferred to the next update. The ISAM2 runs on
-    `device` (default "cuda"), whatever `isam_params.device` says."""
+    `device` (default "cuda"), whatever `isam_params.device` says; with
+    `isam_params.engine_backend="numpy"` it is the host engine, which needs
+    device="cpu" (any other raises ValueError)."""
 
     def __init__(self, lag: float, isam_params: Optional[ISAM2Params] = None,
                  *, device: DeviceLike = "cuda"):

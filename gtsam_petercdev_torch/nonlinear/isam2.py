@@ -26,6 +26,13 @@ delta. The host keeps keys and the tree. The only device -> host reads of
 an update are the engine's (the relinearization scan and one per wildfire
 round); `ISAM2Result.bad_pivots` stays a device tensor until it is read.
 
+`ISAM2Params.engine_backend` picks the engine: "torch" (the default: the
+pools and the bucket kernels on `device`) or "numpy" (the host engine of
+inference/incremental.py: exact per-clique payloads and the native sweeps,
+float64 on device "cpu" only; any other device raises ValueError). The JAX
+package's "auto" sniffs the host (numpy on a CPU host); the port's caller
+names the device and the engine, and nothing is moved behind their back.
+
 Incremental-vs-batch contract (tests/testGaussianISAM2.cpp): with
 wildfire_threshold = 0 the delta equals a from-scratch batch solve of the
 same linearized system to solver precision.
@@ -72,6 +79,22 @@ class ISAM2Params:
     block_dim: Optional[int] = None  # pad dim; default max dim of first types
     device: DeviceLike = "cuda"
     dtype: Any = None  # default float64
+    # "torch" | "numpy" (the host engine: device "cpu", float64); module docstring
+    engine_backend: str = "torch"
+
+
+def check_engine_backend(engine_backend: str, device: DeviceLike, dtype=None) -> None:
+    """Raise ValueError unless `engine_backend` is "torch" or "numpy", and
+    for "numpy" (the host engine) unless `device` is the CPU and `dtype`
+    float64 (None: the default, float64)."""
+    if engine_backend not in ("torch", "numpy"):
+        raise ValueError(f"engine_backend must be 'torch' or 'numpy', not {engine_backend!r}")
+    if engine_backend == "numpy" and torch.device(device).type != "cpu":
+        raise ValueError(f"engine_backend='numpy' is the host engine: it runs on device='cpu', "
+                         f"not {device!r}")
+    if engine_backend == "numpy" and resolve_dtype(dtype) != torch.float64:
+        raise ValueError(f"engine_backend='numpy' is the host engine: it runs in float64, "
+                         f"not {dtype!r}")
 
 
 @dataclass
@@ -178,6 +201,7 @@ class _Group:
 class ISAM2:
     def __init__(self, params: Optional[ISAM2Params] = None):
         self.params = params or ISAM2Params()
+        check_engine_backend(self.params.engine_backend, self.params.device, self.params.dtype)
         self.device = resolve_device(self.params.device)
         self.dtype = resolve_dtype(self.params.dtype)
         self._engine: Optional[IncrementalEngine] = None
@@ -316,7 +340,7 @@ class ISAM2:
         gid = self._key_gid[int(key)]
         st = self._stores[self._gid_type[gid]]
         p = tree_map(lambda a: a[self._gid_row[gid]], st.params)
-        return st.mt.retract(p, self._engine.x[gid, : st.mt.dim])
+        return st.mt.retract(p, self._engine.delta_at(gid, st.mt.dim))
 
     def delta(self) -> Dict[str, torch.Tensor]:
         eng = self._engine
@@ -388,7 +412,8 @@ class ISAM2:
         if not types:
             raise ValueError("first ISAM2.update must introduce variables")
         d = self.params.block_dim or max(manifold.get(t).dim for t in types)
-        self._engine = IncrementalEngine(d, dtype=self.dtype, device=self.device)
+        self._engine = IncrementalEngine(d, dtype=self.dtype, device=self.device,
+                                         backend=self.params.engine_backend)
         return self._engine
 
     def _add_variables(self, new_theta: Optional[Values]) -> List[int]:
@@ -489,7 +514,7 @@ class ISAM2:
             st = self._stores[t]
             idx = eng._upload(np.stack([gids, [self._gid_row[g] for g in gids]]))
             p = tree_map(lambda a: a[idx[1]], st.params)
-            newp = st.mt.retract(p, eng.x[idx[0], : st.mt.dim])
+            newp = st.mt.retract(p, eng.delta_at(idx[0], st.mt.dim))
             tree_map(lambda a, v: a.index_copy_(0, idx[1], v), st.params, newp)
 
     def _live_params(self, st: _TypeStore):

@@ -35,7 +35,8 @@ import torch
 from gtsam_petercdev_torch.core.tree import tree_map
 from gtsam_petercdev_torch.device import DeviceLike, resolve_device, resolve_dtype
 from gtsam_petercdev_torch.inference.incremental import (
-    CliqueRec, FactorGroup, IncrementalEngine, MsgRec, PoolArrays, PoolClass, _make_pool)
+    CliqueRec, FactorGroup, HostPayload, IncrementalEngine, MsgRec, PoolArrays, PoolClass,
+    _make_pool)
 from gtsam_petercdev_torch.linear.noise import RobustLoss
 from gtsam_petercdev_torch.nonlinear.factor_graph import FactorType, NonlinearFactorGraph
 from gtsam_petercdev_torch.nonlinear.isam2 import ISAM2, ISAM2Params, _Group, _TypeStore
@@ -260,12 +261,16 @@ def load_checkpoint(path: str, *, device: DeviceLike = "cuda"):
 # host numpy, so that a resumed run repeats the uninterrupted one bit for
 # bit: the pools with their capacity, live rows and free lists (row
 # allocation order), the message pools, the factor groups, the wrapper's
-# stores and groups. The structural plan cache is not saved: a plan is a
-# function of structure alone and is rebuilt on its first miss.
+# stores and groups. The host engine (backend "numpy") has no pools: its
+# per-clique payloads and message payloads are saved whole, and the native
+# sweep's tables (`_NativeTree`) are rebuilt from the records on load. The
+# structural plan cache is not saved: a plan is a function of structure
+# alone and is rebuilt on its first miss. A card engine's checkpoint loads
+# onto any device; a host engine's loads onto the host engine.
 
 _ISAM2_FORMAT = "gtsam_petercdev_torch.ISAM2/1"
 _PARAM_FIELDS = ("relinearize_threshold", "relinearize_skip", "enable_relinearization",
-                 "wildfire_threshold", "evaluate_error", "block_dim")
+                 "wildfire_threshold", "evaluate_error", "block_dim", "engine_backend")
 
 
 def _pool_state(p, live_rows) -> tuple:
@@ -285,7 +290,9 @@ def isam2_to_bytes(isam) -> bytes:
         raise ValueError("empty ISAM2 (no update yet)")
     engine = {
         "d": eng.d, "n": eng.n, "var_dims": eng.var_dims, "xcap": eng.xcap,
-        "x": eng.x.cpu().numpy(),
+        "backend": eng.backend, "x": _to_host(eng.x),
+        "payloads": {cid: tuple(p) for cid, p in eng.payloads.items()},
+        "msg_payloads": dict(eng.msg_payloads),
         "pools": [_pool_state(p, [c.row for c in eng.cliques if c is not None and c.cls == k])
                   for k, p in eng.pools.items()],
         "msg_pools": [_pool_state(p, [m.row for m in eng.msgs if m.alive and m.ns == k])
@@ -294,8 +301,8 @@ def isam2_to_bytes(isam) -> bytes:
                     (c.cid, c.cls, c.row, c.frontal, c.separator, c.parent, list(c.children),
                      c.owned_fac, c.owned_msg, c.alive) for c in eng.cliques],
         "var_clique": dict(eng.var_clique),
-        "groups": [(fg.K, fg.dims, fg.sign, fg.cap, tuple(a[: fg.n].cpu().numpy() for a in fg.A),
-                    fg.b[: fg.n].cpu().numpy(), fg.keys[: fg.n], fg.n) for fg in eng.groups],
+        "groups": [(fg.K, fg.dims, fg.sign, fg.cap, tuple(_to_host(a[: fg.n]) for a in fg.A),
+                    _to_host(fg.b[: fg.n]), fg.keys[: fg.n], fg.n) for fg in eng.groups],
         "var_factors": {k: list(v) for k, v in eng.var_factors.items()},
         "msgs": [(m.mid, m.ns, m.row, m.scope, m.alive) for m in eng.msgs],
         "removed_units": sorted(eng.removed_units),
@@ -321,23 +328,42 @@ def isam2_to_bytes(isam) -> bytes:
                         protocol=4)
 
 
+def _np_rows_into(saved: np.ndarray, cap: int, dtype) -> np.ndarray:
+    """A zero host array of cap rows whose first rows are `saved`."""
+    out = np.zeros((cap,) + saved.shape[1:], dtype=dtype)
+    out[: saved.shape[0]] = saved
+    return out
+
+
 def _first_rows(tree, n: int):
     return tree_map(lambda a: a[:n], tree)
 
 
 def isam2_from_bytes(data: bytes, *, device: DeviceLike = "cuda"):
-    """An ISAM2 restored onto `device` from isam2_to_bytes' output."""
+    """An ISAM2 restored onto `device` from isam2_to_bytes' output. A host
+    engine's checkpoint resumes on the host engine and needs device="cpu"
+    (any other raises ValueError, as ISAM2Params does)."""
     state = _loads(data)
     if not isinstance(state, dict) or state.get("format") != _ISAM2_FORMAT:
         raise ValueError("not an ISAM2 checkpoint of gtsam_petercdev_torch "
                          f"(format {state.get('format') if isinstance(state, dict) else None!r})")
     es, ws = state["engine"], state["wrapper"]
-    dev = resolve_device(device)
     dtype = resolve_dtype(ws["dtype"])
-    isam = ISAM2(ISAM2Params(**ws["params"], device=dev, dtype=dtype))
-    eng = isam._engine = IncrementalEngine(es["d"], dtype=dtype, device=dev)
+    isam = ISAM2(ISAM2Params(**ws["params"], device=device, dtype=dtype))
+    dev = isam.device
+    backend = es.get("backend", "torch")
+    eng = isam._engine = IncrementalEngine(es["d"], dtype=dtype, device=dev, backend=backend)
     eng.n, eng.var_dims, eng.xcap = es["n"], np.asarray(es["var_dims"]), es["xcap"]
-    eng.x = _rows_into(es["x"], es["xcap"] + 1, dev, dtype)
+    if eng._np:
+        rows_into = lambda a, cap: _np_rows_into(a, cap, eng._npdtype)
+        eng.x = rows_into(es["x"], es["xcap"] + 1)
+        eng.payloads = {cid: HostPayload(*(np.array(a) for a in p))
+                        for cid, p in es["payloads"].items()}
+        eng.msg_payloads = {mid: (np.array(u), np.array(g))
+                            for mid, (u, g) in es["msg_payloads"].items()}
+    else:
+        rows_into = lambda a, cap: _rows_into(a, cap, dev, dtype)
+        eng.x = rows_into(es["x"], es["xcap"] + 1)
 
     def pool(ps):
         nf, ns, cap, top, free, rows, arrays = ps
@@ -358,13 +384,20 @@ def isam2_from_bytes(data: bytes, *, device: DeviceLike = "cuda"):
             cid=cs[0], cls=tuple(cs[1]), row=cs[2], frontal=list(cs[3]), separator=list(cs[4]),
             parent=cs[5], children=set(cs[6]), owned_fac=[tuple(u) for u in cs[7]],
             owned_msg=list(cs[8]), alive=cs[9]))
+    if eng._nat is not None:  # the native sweep's tables, from the records
+        for rec in eng.cliques:
+            if rec is not None and rec.alive:
+                eng._nat.alloc(rec, eng.payloads[rec.cid])
+        for rec in eng.cliques:
+            if rec is not None and rec.alive and rec.parent >= 0:
+                eng._nat.set_parent(rec, eng.cliques[rec.parent])
     eng.var_clique = dict(es["var_clique"])
     for gid, (K, dims, sign, cap, A, b, keys, n) in enumerate(es["groups"]):
         k_all = np.zeros((cap, K), dtype=np.int64)
         k_all[:n] = keys
         eng.groups.append(FactorGroup(
             gid=gid, K=K, dims=tuple(dims), sign=sign, cap=cap,
-            A=tuple(_rows_into(a, cap, dev, dtype) for a in A), b=_rows_into(b, cap, dev, dtype),
+            A=tuple(rows_into(a, cap) for a in A), b=rows_into(b, cap),
             keys=k_all, n=n))
     eng.var_factors = {k: [tuple(u) for u in v] for k, v in es["var_factors"].items()}
     eng.msgs = [MsgRec(mid=m[0], ns=m[1], row=m[2], scope=list(m[3]), alive=m[4])

@@ -10,8 +10,8 @@ window, ~5 s a step on the CPU): the batch pair the first 4 steps at lag 2
 at lag 4 (a synchronize with no key out of lag, then one that moves keys
 0-2). The batch pair builds no Bayes tree; the incremental pair's iSAM2
 halves back-substitute partially (wildfire 0.001) and marginalize, both of
-which depend on the tree, so its JAX side runs the "jax" engine on the
-COLAMD proxy the port uses (as tests/test_torch_isam2.py). The incremental
+which depend on the tree, so both sides run on the COLAMD proxy there
+(the JAX side its "jax" engine; as tests/test_torch_isam2.py). The incremental
 pair is held against the batch pair over all 16 steps at lag 4.
 
 Tolerances: estimates against JAX 1e-8 (tangent norm); the incremental
@@ -24,6 +24,8 @@ import pytest
 import torch
 
 from gtsam_petercdev_torch.geometry import pose2 as t_pose2
+from gtsam_petercdev_torch.inference import incremental as t_inc
+from gtsam_petercdev_torch.inference import symbolic as t_sym
 from gtsam_petercdev_torch.nonlinear import concurrent as t_cc
 from gtsam_petercdev_torch.nonlinear import isam2 as t_isam2
 from gtsam_petercdev_torch.nonlinear.factor_graph import FactorType as TFactorType
@@ -123,6 +125,8 @@ def test_pair_matches_jax(incremental, monkeypatch):
         from gtsam_petercdev_tpu.native import build as j_native
 
         monkeypatch.setattr(j_native, "load_ccolamd", lambda *a, **k: None)
+        monkeypatch.setattr(t_inc, "ccolamd_ordering", t_sym.colamd_ordering)
+        monkeypatch.setattr(t_sym, "ccolamd_ordering", t_sym.colamd_ordering)
     steps, lag = (8, LAG) if incremental else (4, 2.0)
     fj, sj = _run_pair(True, incremental, steps, lag)
     ft, st = _run_pair(False, incremental, steps, lag)

@@ -4,9 +4,9 @@
 The streams are tests/test_fixed_lag.py's (a Pose2 chain with unary xy
 measurements, made from a seed with numpy); the port runs on the CPU in
 float64. The incremental smoother's marginalizations depend on the Bayes
-tree, so the JAX side runs its "jax" engine on the COLAMD proxy there (as
-tests/test_torch_isam2.py); the batch smoother and NonlinearISAM do not
-build one.
+tree, so both sides run on the COLAMD proxy there (the JAX side its "jax"
+engine; as tests/test_torch_isam2.py); the batch smoother and
+NonlinearISAM do not build one.
 
 Tolerances: the marginal's information and gradient (sqrtH^T sqrtH,
 sqrtH^T rhs: sqrtH itself is unique only up to an orthogonal factor)
@@ -23,6 +23,8 @@ import pytest
 import torch
 
 from gtsam_petercdev_torch.geometry import pose2 as t_pose2
+from gtsam_petercdev_torch.inference import incremental as t_inc
+from gtsam_petercdev_torch.inference import symbolic as t_sym
 from gtsam_petercdev_torch.nonlinear import fixed_lag as t_fl
 from gtsam_petercdev_torch.nonlinear import isam2 as t_isam2
 from gtsam_petercdev_torch.nonlinear import optimizers as t_opt
@@ -186,6 +188,8 @@ def test_fixed_lag_smoothers_match_jax_and_batch(kind, monkeypatch):
         from gtsam_petercdev_tpu.native import build as j_native
 
         monkeypatch.setattr(j_native, "load_ccolamd", lambda *a, **k: None)
+        monkeypatch.setattr(t_inc, "ccolamd_ordering", t_sym.colamd_ordering)
+        monkeypatch.setattr(t_sym, "ccolamd_ordering", t_sym.colamd_ordering)
         T, seed, bound = 40, 7, 2e-3
         params = dict(relinearize_threshold=0.0, relinearize_skip=1, wildfire_threshold=0.0)
         sj = j_fl.IncrementalFixedLagSmoother(lag, j_isam2.ISAM2Params(engine_backend="jax", **params))

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from gtsam_petercdev_torch.inference import incremental as t_inc
+from gtsam_petercdev_torch.inference import symbolic as t_sym
 from gtsam_petercdev_torch.linear import solve as t_solve
 from gtsam_petercdev_torch.models import city10000 as t_city
 from gtsam_petercdev_torch.nonlinear import isam2 as t_isam2
@@ -135,11 +136,14 @@ def test_relinearized_estimates_match_jax():
 
 
 def test_bayes_tree_counters_match_jax_engine(monkeypatch):
-    """(3) The JAX engine's "jax" backend on the COLAMD proxy (the port has
-    no CCOLAMD) builds the same Bayes tree as the port, update by update."""
+    """(3) The JAX engine's "jax" backend and the port, both on the COLAMD
+    proxy (the JAX package's CCOLAMD and the port's AMD order differently),
+    build the same Bayes tree, update by update."""
     from gtsam_petercdev_tpu.native import build as j_native
 
     monkeypatch.setattr(j_native, "load_ccolamd", lambda *a, **k: None)
+    monkeypatch.setattr(t_inc, "ccolamd_ordering", t_sym.colamd_ordering)
+    monkeypatch.setattr(t_sym, "ccolamd_ordering", t_sym.colamd_ordering)
     steps = _stream(24, seed=3, loop_every=7, loop_back=7, first_loop=7)
     params = dict(relinearize_threshold=0.01, relinearize_skip=1)
     ji = j_isam2.ISAM2(j_isam2.ISAM2Params(engine_backend="jax", **params))

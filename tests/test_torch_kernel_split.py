@@ -1,5 +1,5 @@
-"""The launch plans of the bucket kernels at every bucket shape of the two
-bench plans: the multi-CTA K1 and K3 (the partial Cholesky kernels for
+"""The launch plans of the bucket kernels at every bucket shape of the
+recorded plans: the multi-CTA K1 and K3 (the partial Cholesky kernels for
 dense fronts), K2 (the fused backsolve: a warp per clique, or a cluster of
 CTAs per clique) and K4 (the block-pool partial Cholesky, several leaf
 cliques a CTA).
@@ -20,7 +20,9 @@ meta tensor stands in for a device tensor, a recorder for the library).
 
 The bucket shapes come from tests/data/bench_bucket_shapes.json, written by
 tools/bench_bucket_shapes.py from the sphere and bundle-adjustment bench
-plans; a test re-plans the sphere and compares.
+plans and from the plans of the same graphs on the runner-up ordering
+(nested dissection, degree-ascending), which the planner picks on other
+graphs of these kinds; a test re-plans the sphere on both and compares.
 """
 
 import contextlib
@@ -34,6 +36,7 @@ import pytest
 import torch
 
 from gtsam_petercdev_torch.inference import elimination as t_elim
+from gtsam_petercdev_torch.inference import symbolic as t_sym
 from gtsam_petercdev_torch.ops import build, schur_update
 from gtsam_petercdev_torch.ops import cholesky as t_ops
 from gtsam_petercdev_torch.ops import cholesky_v2 as t_ops_v2
@@ -42,12 +45,13 @@ from gtsam_petercdev_torch.utils import convert, synthetic
 with open(os.path.join(os.path.dirname(__file__), "data", "bench_bucket_shapes.json")) as _f:
     PLANS = json.load(_f)
 ITEMSIZE = {"f64": 8, "f32": 4}
+PLAN_NAMES = ("sphere", "ba", "sphere_nd", "ba_degree")
 
 
 def _shapes(route):
     """Distinct (B, nf, ns, d, dtype) of the buckets routed to `route`."""
     out = []
-    for plan in ("sphere", "ba"):
+    for plan in PLAN_NAMES:
         d = PLANS[plan]["d"]
         for B, nf, ns, r64, r32 in PLANS[plan]["buckets"]:
             for r, sfx in ((r64, "f64"), (r32, "f32")):
@@ -90,14 +94,21 @@ def test_bench_shapes_file_matches_the_sphere_plan():
     got = [[bm.B, bm.nf, bm.ns, t_elim.bucket_route(bm, 6, 8), t_elim.bucket_route(bm, 6, 4)]
            for bm in maps.buckets]
     assert got == PLANS["sphere"]["buckets"]
-    # the counts the kernels were chosen by: 11 sphere K1 buckets (14 cliques)
-    # in float64, 7 in float32; the BA plan sends 2 to K1 and 123 to K3
+    edges = np.concatenate([np.stack(s.gids, axis=1) for s in structure if len(s.gids) == 2])
+    nd = t_elim.build_plan_for_graph(structure, len(v), 6, max_buckets_per_level=4,
+                                     ordering=t_sym.nested_dissection_ordering(len(v), edges))
+    assert [[bm.B, bm.nf, bm.ns, t_elim.bucket_route(bm, 6, 8), t_elim.bucket_route(bm, 6, 4)]
+            for bm in t_elim.build_numeric_maps(nd, structure).buckets] == \
+        PLANS["sphere_nd"]["buckets"]
+    # the plans on the port's AMD ordering: 10 sphere K1 buckets (12 cliques)
+    # in float64, 6 in float32; the BA plan is its 50,000-point leaf (K4),
+    # 31 chained 32-camera fronts (K1) and the 8-camera root (K3)
     k1 = [b for b in got if b[3] == "global"]
-    assert len(k1) == 11 and sum(b[0] for b in k1) == 14
-    assert sum(b[4] == "global" for b in got) == 7
+    assert len(k1) == 10 and sum(b[0] for b in k1) == 12
+    assert sum(b[4] == "global" for b in got) == 6
     ba = PLANS["ba"]["buckets"]
-    assert [b[:3] for b in ba if b[3] == "global"] == [[1, 12, 24], [1, 24, 0]]
-    assert sum(b[3] == "smem" for b in ba) == 123 and sum(b[0] for b in ba if b[3] == "smem") == 792
+    assert [b[:3] for b in ba if b[3] == "global"] == [[1, 32, 6]] * 31
+    assert [b[:3] for b in ba if b[3] != "global"] == [[50000, 1, 4], [1, 8, 0]]
 
 
 @pytest.mark.parametrize("B,nf,ns,d,sfx", K1_SHAPES)
@@ -166,9 +177,12 @@ def test_k1_factor_branch_by_shape(nf, ns, d, itemsize, packed, smem):
 
 
 def test_k1_packed_branch_holds_every_bench_front():
-    """Every K1 front of the two bench plans keeps F11 in shared memory."""
-    for B, nf, ns, d, sfx in _shapes("global"):
-        assert t_ops_v2.k1_plan(B, nf, ns, d, ITEMSIZE[sfx]).packed, (B, nf, ns, d, sfx)
+    """Every K1 front of the recorded plans keeps F11 in shared memory but
+    the BA bench plan's 32-camera fronts in float64 (fd = 288: a packed F11 of
+    333 KB), which take the global branch."""
+    unpacked = [s for s in _shapes("global")
+                if not t_ops_v2.k1_plan(*s[:4], ITEMSIZE[s[4]]).packed]
+    assert unpacked == [(1, 32, 6, 9, "f64")]
 
 
 @pytest.mark.parametrize("B,nf,ns,d,sfx", K3_SHAPES)
@@ -303,8 +317,8 @@ def test_schur_stage_is_registered():
 
 
 def _all_shapes():
-    """Distinct (B, nf, ns, d) of every bucket of the two bench plans."""
-    return sorted({(B, nf, ns, PLANS[p]["d"]) for p in ("sphere", "ba")
+    """Distinct (B, nf, ns, d) of every bucket of the recorded plans."""
+    return sorted({(B, nf, ns, PLANS[p]["d"]) for p in PLAN_NAMES
                    for B, nf, ns, _, _ in PLANS[p]["buckets"]})
 
 
@@ -312,13 +326,13 @@ K2_SHAPES = [s + (sfx,) for s in _all_shapes() + [(1, 32, 8, 16)] for sfx in ("f
 
 
 def test_k2_mode_threshold_pins_the_bench_buckets():
-    """Warp mode takes the fronts of fd <= 32 (118 of the 126 BA buckets,
-    11 of the 47 sphere buckets) except buckets of fewer than 32 cliques
-    whose separator is wider than 6 fd: 57 BA buckets (the 50,000-clique
-    leaf among them) and 7 sphere buckets."""
+    """Warp mode takes the fronts of fd <= 32 (1 of the 33 BA buckets, 19 of
+    the 48 sphere buckets) except buckets of fewer than 32 cliques whose
+    separator is wider than 6 fd: 1 BA bucket (the 50,000-clique leaf) and
+    13 sphere buckets."""
     assert t_ops_v2.K2_WARP_MAX_FD == 32
     assert (t_ops_v2.K2_WARP_MIN_B, t_ops_v2.K2_WARP_SD_PER_FD) == (32, 6)
-    for plan, n_small, n_warp in (("sphere", 11, 7), ("ba", 118, 57)):
+    for plan, n_small, n_warp in (("sphere", 19, 13), ("ba", 1, 1)):
         d = PLANS[plan]["d"]
         buckets = PLANS[plan]["buckets"]
         assert sum(nf * d <= 32 for _, nf, _, _, _ in buckets) == n_small

@@ -9,7 +9,8 @@ ordering, so they are held against the JAX package's default engine; what
 depends on the Bayes tree (which cliques a marginalization deletes, the
 messages it leaves, the fixed set, same-clique joints) is held against the
 JAX engine's "jax" backend with its CCOLAMD ordering replaced by the
-COLAMD proxy the port uses (as tests/test_torch_isam2.py does).
+COLAMD proxy, and the port's AMD by the same proxy (as
+tests/test_torch_isam2.py does).
 
 Tolerances: covariances against JAX atol 1e-9, against the dense oracle
 atol 1e-8 (tests/test_tree_marginals.py's); estimates after a
@@ -22,6 +23,8 @@ import pytest
 import torch
 
 from gtsam_petercdev_torch.inference.treemarg import TreeMarginals
+from gtsam_petercdev_torch.inference import incremental as t_inc
+from gtsam_petercdev_torch.inference import symbolic as t_sym
 from gtsam_petercdev_torch.nonlinear import isam2 as t_isam2
 from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph as TGraph
 from gtsam_petercdev_torch.nonlinear.marginals import Marginals as TMarginals
@@ -110,6 +113,8 @@ def _proxy_jax_isam(monkeypatch, **kw):
     from gtsam_petercdev_tpu.native import build as j_native
 
     monkeypatch.setattr(j_native, "load_ccolamd", lambda *a, **k: None)
+    monkeypatch.setattr(t_inc, "ccolamd_ordering", t_sym.colamd_ordering)
+    monkeypatch.setattr(t_sym, "ccolamd_ordering", t_sym.colamd_ordering)
     return j_isam2.ISAM2(j_isam2.ISAM2Params(engine_backend="jax", **kw))
 
 

@@ -135,6 +135,18 @@ def test_isam2_checkpoint_with_marginals_resumes_bitwise(tmp_path):
     """An ISAM2 that has marginalized keys (message pools, a fixed set,
     retired factors), saved after update 15 and resumed for 5 more: its
     estimate and delta are bitwise those of the uninterrupted run."""
+    _checkpoint_with_marginals_resumes_bitwise(tmp_path, "torch")
+
+
+def test_host_engine_checkpoint_resumes_bitwise(tmp_path):
+    """As above on the host engine (engine_backend="numpy"): the checkpoint
+    holds its per-clique payloads and marginal message payloads, the load
+    rebuilds the native sweep's tables, and the resumed run is bitwise the
+    uninterrupted one."""
+    _checkpoint_with_marginals_resumes_bitwise(tmp_path, "numpy")
+
+
+def _checkpoint_with_marginals_resumes_bitwise(tmp_path, backend):
     rng = np.random.default_rng(8)
     gt = [np.zeros(3)]
     for _ in range(19):
@@ -152,7 +164,7 @@ def test_isam2_checkpoint_with_marginals_resumes_bitwise(tmp_path):
         isam.update(g, v)
 
     params = t_isam2.ISAM2Params(relinearize_threshold=0.01, relinearize_skip=1,
-                                 wildfire_threshold=0.0, device="cpu")
+                                 wildfire_threshold=0.0, device="cpu", engine_backend=backend)
     runs = []
     for resume in (False, True):
         rng = np.random.default_rng(8)
@@ -167,6 +179,7 @@ def test_isam2_checkpoint_with_marginals_resumes_bitwise(tmp_path):
                 t_ser.save_isam2(path, isam)
                 isam = t_ser.load_isam2(path, device="cpu")
                 assert isam.engine.msgs and isam._fixed_gids
+                assert isam.engine.backend == backend
         runs.append(isam)
     a, b = runs
     assert a.engine.n_live == b.engine.n_live
@@ -196,6 +209,15 @@ def test_run_city10000_checkpoint_resumes(tmp_path, capsys):
     np.testing.assert_array_equal(resumed.estimate, full.estimate)
     rj = j_city.run_city10000(str(path))
     np.testing.assert_allclose(resumed.estimate, np.asarray(rj.estimate), atol=1e-8)
+    # the host engine's run resumes bitwise too, on the CPU; onto "cuda" its
+    # checkpoint raises ValueError (with or without a card) and is not moved
+    host = t_city.run_city10000(str(path), device="cpu", engine_backend="numpy",
+                                progress_every=50, checkpoint_path=ckpt)
+    rest = t_city.run_city10000(str(path), device="cpu", resume_from=ckpt,
+                                engine_backend="numpy")
+    np.testing.assert_array_equal(rest.estimate, host.estimate)
+    with pytest.raises(ValueError, match="device='cpu'"):
+        t_ser.load_isam2(ckpt, device="cuda")
 
 
 def _entry_points(tmp_path):

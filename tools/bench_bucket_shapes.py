@@ -9,8 +9,12 @@ the iSAM2 path to tests/data/isam2_bucket_shapes.json.
 The plans are the ones `chip_smoke.py` builds: the 2,500-pose sphere
 (`synthetic.sphere_rings(50, 50, seed=0)`, d = 6) and the synthetic bundle
 adjustment (`make_synthetic_ba(1000, 50_000, 4, seed=0)`, d = 9), both at
-four buckets per level as bench.py plans them. A plan depends on the
-graph's structure alone, so this runs on the CPU (about a minute, most of
+four buckets per level as bench.py plans them. Beside each it records
+the plan of the runner-up ordering among best_ordering's candidates on the
+same graph ("sphere_nd": nested dissection; "ba_degree": degree-ascending),
+which the planner picks on other graphs of these kinds, so the kernels'
+launch plans are checked at their shapes too. A plan depends on the
+graph's structure alone, so this runs on the CPU (a few minutes, most of
 it the BA ordering). The CPU tests (tests/test_torch_kernel_split.py) read
 the file.
 
@@ -117,6 +121,11 @@ def main():
     structure = elimination.graph_structure(g, v)
     plan = elimination.build_plan_for_graph(structure, len(v), 6, max_buckets_per_level=4)
     sphere = buckets(elimination.build_numeric_maps(plan, structure), 6)
+    edges = np.concatenate([np.stack(s.gids, axis=1) for s in structure if len(s.gids) == 2])
+    plan = elimination.build_plan_for_graph(
+        structure, len(v), 6, ordering=symbolic.nested_dissection_ordering(len(v), edges),
+        max_buckets_per_level=4)
+    sphere_nd = buckets(elimination.build_numeric_maps(plan, structure), 6)
 
     n_cams, n_pts = 1000, 50_000
     bg, bv = build_ba_graph(make_synthetic_ba(n_cams, n_pts, 4, seed=0, dtype=np.float64),
@@ -127,18 +136,26 @@ def main():
     n_vars = sum(counts.values())
     var_dims = np.full(n_vars, 9, dtype=np.int64)
     var_dims[offs["Point3"] : offs["Point3"] + n_pts] = 3
-    perm = symbolic.best_ordering(n_vars, np.stack(struct[0].gids, axis=1))
-    plan = elimination.build_plan_for_graph(struct, n_vars, 9, ordering=perm,
-                                            max_buckets_per_level=4)
-    ba = buckets(elimination.build_numeric_maps(plan, struct, var_dims=var_dims), 9)
+    edges = np.stack(struct[0].gids, axis=1)
+    ba_plans = {}
+    for name, perm in (("ba", symbolic.best_ordering(n_vars, edges)),
+                       ("ba_degree", symbolic.degree_ascending_ordering(n_vars, edges))):
+        plan = elimination.build_plan_for_graph(struct, n_vars, 9, ordering=perm,
+                                                max_buckets_per_level=4)
+        ba_plans[name] = buckets(elimination.build_numeric_maps(plan, struct, var_dims=var_dims), 9)
+    ba, ba_degree = ba_plans["ba"], ba_plans["ba_degree"]
 
     with open(OUT, "w") as f:
         json.dump({"note": "written by tools/bench_bucket_shapes.py: [B, nf, ns, route f64, "
-                           "route f32] per bucket of the bench plans, in plan order",
-                   "sphere": {"d": 6, "buckets": sphere}, "ba": {"d": 9, "buckets": ba}},
+                           "route f32] per bucket of the bench plans, in plan order; "
+                           "sphere_nd / ba_degree: the same graphs on the runner-up ordering",
+                   "sphere": {"d": 6, "buckets": sphere}, "ba": {"d": 9, "buckets": ba},
+                   "sphere_nd": {"d": 6, "buckets": sphere_nd},
+                   "ba_degree": {"d": 9, "buckets": ba_degree}},
                   f, indent=None)
         f.write("\n")
-    for name, bs in (("sphere", sphere), ("ba", ba)):
+    for name, bs in (("sphere", sphere), ("ba", ba), ("sphere_nd", sphere_nd),
+                     ("ba_degree", ba_degree)):
         print(name, len(bs), "buckets;", {r: sum(b[3] == r for b in bs)
                                           for r in ("blocks", "smem", "global")})
     return 0
