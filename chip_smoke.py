@@ -15,6 +15,8 @@
                                           shapes of phase 3, then phase 9 (after
                                           an unprofiled run c) of phase 6); no
                                           result line
+    python3 chip_smoke.py --partitioned-only  phases 1-2, the sphere's plans, then
+                                          phase 11; no result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -141,7 +143,27 @@ a result line:
              native sweeps' share of an update, ATE (gate: within 0.1% of
              run c)'s) and the largest pose difference to run c)'s estimate;
              c) a checkpoint at line 100 resumed to 150, bitwise
- 11. result  a `kernels` JSON line, the card line, then the last line
+ 11. partitioned  the separator-Schur solver (parallel/partition.py), float64
+             unless stated, right after phase 8 on phase 4's sphere: a) the
+             damped solve (lambda 1e-5) at P = 1, 2, 4, 8 parts folded onto
+             the card against multifrontal_solve (gate 1e-8 x the largest
+             entry), a repeat bitwise equal, counters reset just before and
+             read just after: every level one launch of K4 / K3 / K1 and one
+             of K2, no plain version called; b) levenberg_marquardt(solver=
+             "partitioned", partition_devices=4) against phase 4's
+             multifrontal LM (final error rel 1e-9), and one float32 solve
+             no further from the float64 solve than the JAX
+             PartitionedSolver's on the same system (PART_F32_REF); a) and
+             c) time each P in rounds alternated with the multifrontal
+             solve; c) the 48-camera / 1,600-point BA rig through d = 3
+             sub-blocks at P = 1, 2, 4 against the mixed multifrontal solve
+             (the gates of a)); d) a one-rank NCCL process group (a FileStore
+             in a temporary directory): distributed_normal_equations against
+             assemble_dense, the solver over the group against a)'s P = 4
+             solve (1e-12 x the largest entry); e) K4 / K3 / K1 / K2 against
+             their plain versions at every level shape of a)-d); the
+             scaling table (parallel/scaling.py's)
+ 12. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -253,6 +275,24 @@ FILL_GATE = 1.20
 # card's run c); c) a checkpoint at FAMILY_GATE_CKPT resumed to
 # CITY_GATE_LINES
 HOST_ATE_GATE = 1e-3
+# phase 11 (the partitioned solver) on phase 4's sphere: the part counts of
+# a) and of the sub-block BA rig of c) (parallel/scaling.py's), the damping;
+# gates: solve = multifrontal to PART_GATE x its largest entry (the JAX
+# package's scaling run measured <= 9.6e-9 absolute at sphere2500,
+# SCALING.md); LM's final error rel PART_LM_GATE; the float32 partitioned
+# solve no further from the float64 solve (x the largest entry) than the
+# JAX package's PartitionedSolver is on the same float32 system
+# (PART_F32_REF, tools/partitioned_f32_reference.py: 1.144e-3; the port on
+# the CPU 6.44e-4, the float32 multifrontal solve 9.29e-5); the one-rank
+# group's normal equations and solve to PART_NE_GATE x the largest entry
+# (assemble_dense sums with atomics)
+PARTS = (1, 2, 4, 8)
+BA_PARTS = (1, 2, 4)
+PART_LAM = 1e-5
+PART_GATE = 1e-8
+PART_LM_GATE = 1e-9
+PART_F32_REF = "tests/data/partitioned_f32_reference.json"
+PART_NE_GATE = 1e-12
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
@@ -1686,6 +1726,243 @@ def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
     return out
 
 
+# --- phase 11: the partitioned solver ----------------------------------------------------------
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Within the block, count the calls of the four bucket kernels' plain
+    versions (a wrapper's branch for CPU tensors) by name: a path on the
+    card's tensors must make none."""
+    from gtsam_petercdev_torch.inference import kernels
+    from gtsam_petercdev_torch.ops import cholesky, cholesky_v2
+
+    calls = {}
+    targets = [(kernels, "partial_cholesky"), (cholesky, "partial_cholesky_plain"),
+               (cholesky, "partial_cholesky_blocks_plain"), (cholesky_v2, "backsolve_plain")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in targets]
+    for mod, attr, fn in saved:
+        def counted(*args, _fn=fn, _name=f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}", **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kw)
+
+        setattr(mod, attr, counted)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def check_rows(rows, what, dev):
+    """Phase 11's gates on scaling.partitioned_rows: the solve = the
+    multifrontal solve to PART_GATE x its largest entry, a repeat bitwise
+    equal, and (on the card) every level one launch of K4 / K3 / K1 and
+    one of K2."""
+    for r in rows:
+        la = r["launches"]
+        factor = sum(la[k] for k in ("partial_cholesky", "partial_cholesky_smem",
+                                     "partial_cholesky_blocks"))
+        if not r["max_abs_diff"] <= PART_GATE * r["max_abs_x"]:
+            raise AssertionError(f"partitioned {what} P={r['parts']}: differs from the "
+                                 f"multifrontal solve by {r['max_abs_diff']:.3e}")
+        if not r["bitwise_repeat"]:
+            raise AssertionError(f"partitioned {what} P={r['parts']}: a repeat differs")
+        if dev == "cuda" and not (factor == r["levels"] and la["backsolve_bucket"] == r["levels"]):
+            raise AssertionError(f"partitioned {what} P={r['parts']}: {r['levels']} levels, "
+                                 f"launches {la}")
+
+
+def run_partitioned(torch, v1, g64, v64, g32, v32, lg0, opt_maps, lm_ref=None, dev="cuda"):
+    """Phase 11 on phase 4's sphere (float64 unless stated): a) the damped
+    solve at P = PARTS folded onto the card against multifrontal_solve; b)
+    LM on solver="partitioned" against phase 4's multifrontal LM, and one
+    float32 solve against the float32 multifrontal solve; c) the sub-block
+    BA rig at P = BA_PARTS against the mixed multifrontal solve; d) a
+    one-rank NCCL group: the normal equations and the solver over it; e)
+    K4 / K3 / K1 / K2 at every level shape of a)-d) against their plain
+    versions. lm_ref: phase 4's multifrontal LM (run here when None).
+    dev: "cpu" for a rehearsal (gloo for NCCL, no kernel gates)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gtsam_petercdev_torch.inference import elimination, kernels
+    from gtsam_petercdev_torch.linear import solve as linsolve
+    from gtsam_petercdev_torch.nonlinear.optimizers import LMParams, levenberg_marquardt
+    from gtsam_petercdev_torch.ops import cholesky_v2 as v2
+    from gtsam_petercdev_torch.parallel import mesh, partition, scaling
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    out, shapes = {}, set()
+    counts = {k: 0 for k in KERNELS}  # one run of each a)-d) solve, b)'s LM
+
+    def add(la):
+        for k in counts:
+            counts[k] += la[k]
+
+    # a) the sphere at P = PARTS, every level on the kernels
+    t0 = time.perf_counter()
+    Ab = tuple((lb.A, lb.b) for lb in lg0.batches)
+    structure, _ = partition.linearized_structure(lg0)
+    n = len(v64)
+    ref = lambda: elimination.multifrontal_solve(opt_maps, Ab, PART_LAM)
+    x_ref = ref()
+    with counting_plain() as plain:
+        rows = scaling.partitioned_rows("sphere", Ab, structure, n, 6, ref, PART_LAM, PARTS)
+    sync()
+    for r in rows:
+        add(r["launches"])
+        shapes.update(map(tuple, r.pop("shapes")))
+    log(f"partitioned a) the sphere at P = {PARTS}, lambda {PART_LAM} "
+        f"({time.perf_counter() - t0:.1f} s; plain versions called: {plain}):")
+    for r in rows:
+        log(f"  P={r['parts']}: S {r['S']}, {r['levels']} levels, plan {r['plan_s']:.2f} s, solve "
+            f"{r['ms']:.3f} ms (multifrontal {r['multifrontal_ms']:.3f}, ratio of alternated "
+            f"rounds {r['ratio']:.3f}), padded GFLOP a part "
+            f"{r['gflop_per_part']:.3f} (+ separator "
+            f"{r['gflop_separator']:.3f}), launches {r['launches']}, max abs diff "
+            f"{r['max_abs_diff']:.3e} (max |x| {r['max_abs_x']:.3e}), bitwise repeat "
+            f"{r['bitwise_repeat']}")
+    check_rows(rows, "sphere", dev)
+    if plain and dev == "cuda":
+        raise AssertionError(f"partitioned a): plain versions ran on the card: {plain}")
+    out["a"] = rows
+
+    # b) LM through the optimizer hook, then one float32 solve
+    t0 = time.perf_counter()
+    if lm_ref is None:
+        lm_ref = levenberg_marquardt(g64, v64, LMParams(solver="multifrontal",
+                                                        max_iterations=LM_ITERS), device=dev)
+    v1.reset_launch_counts()
+    with counting_plain() as plain:
+        lm = levenberg_marquardt(g64, v64, LMParams(solver="partitioned", partition_devices=4,
+                                                    max_iterations=LM_ITERS), device=dev)
+        sync()
+    lm_launches = v1.launch_counts()
+    add(lm_launches)
+    rel = abs(lm.error - lm_ref.error) / abs(lm_ref.error)
+    log(f"partitioned b) LM (P = 4): {['%.12e' % e for e in lm.error_history]}; multifrontal LM "
+        f"{['%.12e' % e for e in lm_ref.error_history]}; final rel {rel:.3e} (gate "
+        f"{PART_LM_GATE}); launches {lm_launches}; {time.perf_counter() - t0:.1f} s")
+    check_result(lm, "partitioned LM")
+    if not rel <= PART_LM_GATE or (plain and dev == "cuda"):
+        raise AssertionError(f"partitioned b): LM final error rel {rel:.3e}, plain {plain}")
+    plan4 = partition.build_partitioned_plan(structure, n, 6, 4)
+    solver4 = partition.PartitionedSolver(plan4, device=dev)
+    prof = profile_step(torch, lambda _: solver4.solve(Ab, PART_LAM), None, top=8) \
+        if dev == "cuda" else None
+    if prof is not None:  # where a) P = 4's time goes
+        busy, n_launch, krows, _ = prof
+        p4_ms = rows[PARTS.index(4)]["ms"]
+        out["p4_profile"] = dict(device_busy_ms=busy, solve_ms=p4_ms, cuda_launches=n_launch,
+                                 top_kernels=[(k[:80], kms, c) for k, kms, c in krows])
+        log(f"partitioned P = 4 solve under torch.profiler: device busy {busy:.3f} ms of "
+            f"{p4_ms:.3f} ms ({100.0 * busy / p4_ms:.1f}%), {n_launch} CUDA kernel launches; "
+            "top kernels: " + "; ".join(f"{kms:.3f} ms {c}x {k[:60]}" for k, kms, c in krows))
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), PART_F32_REF)) as fh:
+        f32_ref = json.load(fh)
+    if (f32_ref["shape"] != [N_RINGS, N_PER_RING] or f32_ref["seed"] != SEED
+            or f32_ref["lam"] != PART_LAM or f32_ref["parts"] != 4):
+        raise AssertionError(f"{PART_F32_REF} is not this system: {f32_ref}")
+    f32_gate = f32_ref["rel_to_float64"]["jax_partitioned_float32"]
+    lg32 = g32.linearize(v32)
+    Ab32 = tuple((lb.A, lb.b) for lb in lg32.batches)
+    x32_mf = elimination.multifrontal_solve(opt_maps, Ab32, PART_LAM)
+    v1.reset_launch_counts()
+    x32 = solver4.solve(Ab32, PART_LAM)
+    sync()
+    add(v1.launch_counts())
+    e32 = ((x32 - x32_mf).abs().max() / x32_mf.abs().max()).item()
+    e32_mf = ((x32_mf.double() - x_ref).abs().max() / x_ref.abs().max()).item()
+    e32_p = ((x32.double() - x_ref).abs().max() / x_ref.abs().max()).item()
+    log(f"partitioned b) float32 solve (P = 4), x the largest entry: against the float64 solve "
+        f"{e32_p:.3e} (gate {f32_gate:.3e}, the JAX PartitionedSolver's on this system; the "
+        f"port on the CPU {f32_ref['rel_to_float64']['port_partitioned_float32']:.3e}); the "
+        f"float32 multifrontal solve against the float64 {e32_mf:.3e}; partitioned against "
+        f"multifrontal in float32 {e32:.3e}")
+    if not e32_p <= f32_gate:
+        raise AssertionError(f"partitioned b): the float32 solve is {e32_p:.3e} from float64, "
+                             f"further than the JAX package's {f32_gate:.3e}")
+    out["b"] = dict(lm_history=lm.error_history, lm_ref_history=lm_ref.error_history,
+                    final_rel=rel, launches=lm_launches, f32_vs_f32_multifrontal=e32,
+                    f32_partitioned_vs_f64=e32_p, f32_multifrontal_vs_f64=e32_mf)
+    del lg32, Ab32, x32, x32_mf
+
+    # c) the sub-block BA rig at P = BA_PARTS
+    t0 = time.perf_counter()
+    with counting_plain() as plain:
+        ba_rows = scaling.ba_rows(torch.device(dev), BA_PARTS)
+    for r in ba_rows:
+        add(r["launches"])
+        shapes.update(map(tuple, r.pop("shapes")))
+    log(f"partitioned c) the {scaling.BA} BA rig through d = 3 sub-blocks at P = {BA_PARTS} "
+        f"({time.perf_counter() - t0:.1f} s; plain versions called: {plain}):")
+    for r in ba_rows:
+        log(f"  P={r['parts']}: S {r['S']}, {r['levels']} levels, plan {r['plan_s']:.2f} s, solve "
+            f"{r['ms']:.3f} ms (multifrontal {r['multifrontal_ms']:.3f}, ratio of alternated "
+            f"rounds {r['ratio']:.3f}), padded GFLOP a part {r['gflop_per_part']:.3f} (+ "
+            f"separator {r['gflop_separator']:.3f}), launches "
+            f"{r['launches']}, max abs diff {r['max_abs_diff']:.3e} (max |x| "
+            f"{r['max_abs_x']:.3e}), bitwise repeat {r['bitwise_repeat']}")
+    check_rows(ba_rows, "BA", dev)
+    if plain and dev == "cuda":
+        raise AssertionError(f"partitioned c): plain versions ran on the card: {plain}")
+    out["c"] = ba_rows
+
+    # d) a one-rank NCCL process group (runs over several cards need a
+    # machine with several)
+    t0 = time.perf_counter()
+    x4 = solver4.solve(Ab, PART_LAM)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                                store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                                world_size=1)
+        try:
+            group = dist.group.WORLD
+            H, g = mesh.distributed_normal_equations(g64, v64, group, device=dev)[0](v64)
+            H0, g0 = linsolve.assemble_dense(lg0)
+            eH = ((H - H0).abs().max() / H0.abs().max()).item()
+            eg = ((g - g0).abs().max() / g0.abs().max()).item()
+            del H, H0, g, g0
+            v1.reset_launch_counts()
+            xg = partition.PartitionedSolver(plan4, group, device=dev).solve(Ab, PART_LAM)
+            sync()
+            add(v1.launch_counts())
+            ex = ((xg - x4).abs().max() / x4.abs().max()).item()
+            bitwise = torch.equal(xg, x4)
+        finally:
+            dist.destroy_process_group()
+    log(f"partitioned d) one-rank NCCL group: distributed_normal_equations against "
+        f"assemble_dense H {eH:.3e}, g {eg:.3e} x the largest entry (gate {PART_NE_GATE}); the "
+        f"solver over the group against a)'s P = 4 solve {ex:.3e} (bitwise {bitwise}; gate "
+        f"{PART_NE_GATE}); {time.perf_counter() - t0:.1f} s")
+    if not (eH <= PART_NE_GATE and eg <= PART_NE_GATE and ex <= PART_NE_GATE):
+        raise AssertionError("partitioned d): the one-rank group differs")
+    out["d"] = dict(H_rel=eH, g_rel=eg, solve_rel=ex, solve_bitwise=bitwise)
+
+    # e) the four kernels at every level shape of a)-d)
+    cases = sorted(shapes)
+    errs = {}
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        check_kernels(torch, (v2, v1, kernels), cases, {"float64": {}, "float32": {}},
+                      extras=False, errs_out=errs)
+    out["e"] = dict(distinct=len(cases), max_abs_err=errs)
+    log(f"partitioned e) {len(cases)} distinct (Bt, nf, ns, d) level shapes of a)-d), each "
+        f"kernel against its plain version in float64 and float32: max abs err {errs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    from gtsam_petercdev_torch.parallel.scaling import table
+
+    log("partitioned scaling table (phase 11 a) and c); card: "
+        f"{card_line()}):")
+    for line in table(rows + ba_rows):
+        log("  " + line)
+    out["launches"] = counts
+    return out
+
+
 # --- phase 10: the host engine ------------------------------------------------------------
 
 
@@ -2199,6 +2476,7 @@ def main():
     smart_only = "--smart-only" in sys.argv[1:]
     optimizers_only = "--optimizers-only" in sys.argv[1:]
     family_only = "--isam2-family-only" in sys.argv[1:]
+    partitioned_only = "--partitioned-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -2330,6 +2608,12 @@ def main():
         log(f"optimizers-only run passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
+    if partitioned_only:
+        # phase 11 alone on the sphere; no result line
+        run_partitioned(torch, v1, g64, v64, g32, v32, lg0, opt_maps)
+        log(f"partitioned-only run passed in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
+
     # the bundle-adjustment problem and its plans: one ordering, two
     # bucketings (bench.py's 4 per level, the optimizers' default 2), shared
     # by the float32 and float64 graphs (a plan depends on structure alone)
@@ -2455,6 +2739,11 @@ def main():
     v1.reset_launch_counts()
     opt_res = run_optimizers(torch, v1, fa, va, g64, v64, g32, opt_maps, lg0)
     mixed_launches = opt_res["mixed"]["launches"]
+
+    # 11. (on the sphere, while its graphs live) the partitioned solver
+    t0 = time.perf_counter()
+    part_res = run_partitioned(torch, v1, g64, v64, g32, v32, lg0, opt_maps, lm)
+    log(f"partitioned phase: {time.perf_counter() - t0:.1f} s")
     del g32, v32, g64, v64, lg0
     log(f"sphere phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2654,7 +2943,7 @@ def main():
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=(launches[kname] + isam2["launches"][kname] + mixed_launches[kname]
-                      + family["launches"][kname]),
+                      + family["launches"][kname] + part_res["launches"][kname]),
             max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
@@ -2665,6 +2954,8 @@ def main():
             isam2_launches_per_update=isam2["launches_per_update"][kname], isam2_d3_sweep=isw,
             launches_isam2_family_path=family["launches"][kname],
             fixed_lag_launches_per_update=family["c"]["launches_per_update"][kname],
+            launches_partitioned_path=part_res["launches"][kname],
+            partitioned_launches_per_solve_p4=part_res["a"][PARTS.index(4)]["launches"][kname],
             cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname]
             + opt_res["mixed"]["cuda_launches"][kname],
             cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname]
@@ -2680,7 +2971,7 @@ def main():
                                   "ba_lm_iters_per_s": ba_iters_per_s, "ba_lm_reference": c2,
                                   "isam2": isam2, "isam2_family": family, "smart": smart_res,
                                   "optimizers": opt_res, "plans": plans,
-                                  "host_engine": host_res}),
+                                  "host_engine": host_res, "partitioned": part_res}),
                      allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,16 @@ def resolve_dtype(dtype=None) -> torch.dtype:
     return table[name]
 
 
+def check_graph_values(graph, values, device: DeviceLike) -> torch.device:
+    """Resolve `device` and raise unless a graph and its Values (anything
+    with a `.device`) live on its type: an entry point moves nothing."""
+    dev = resolve_device(device)
+    for what, d in (("graph", graph.device), ("values", values.device)):
+        if d.type != dev.type:
+            raise ValueError(f"{what} is on {d}, optimizer asked for {dev}")
+    return dev
+
+
 def check_on(t: torch.Tensor, device: torch.device, what: str) -> None:
     """Raise unless tensor `t` lives on `device` (no silent moves)."""
     if t.device.type != device.type or (

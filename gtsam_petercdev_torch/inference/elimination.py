@@ -80,32 +80,44 @@ def build_gather_sum_plan(
 ) -> GatherSumPlan:
     """Plan pool[t] = sum_{s: dest[s]==t} src[s] as gathers.
 
-    dest: [S] destination ids (< n_dest) in source-row order. Rows with the
-    same destination are pairwise-combined (log2 rounds) until every
-    destination has <= max_direct contributing rows, then gathered directly.
+    dest: [S] destination ids (< n_dest) in source-row order; rows with
+    dest[s] < 0 go nowhere (padding, or rows another sum takes). Rows with
+    the same destination are pairwise-combined (log2 rounds) until every
+    destination has <= max_direct contributing rows, then gathered
+    directly. Destinations are taken in order of first appearance and each
+    one's rows in source order, so the order of every sum is fixed. Vectorized
+    (a partitioned level's pushes can have millions of rows).
     """
     dest = np.asarray(dest, dtype=np.int64)
-    groups: Dict[int, List[int]] = {}
-    for s, t in enumerate(dest):
-        groups.setdefault(int(t), []).append(s)
+    src = np.flatnonzero(dest >= 0)
+    t = dest[src]
+    uniq, first, inv = np.unique(t, return_index=True, return_inverse=True)
+    rank_of = np.empty(len(uniq), dtype=np.int64)
+    rank_of[np.argsort(first, kind="stable")] = np.arange(len(uniq))
+    grp = rank_of[inv]
+    order = np.argsort(grp, kind="stable")
+    grp, rows = grp[order], src[order]
+    group_dest = uniq[np.argsort(rank_of)]
+    counts = np.bincount(grp, minlength=len(uniq))
     rounds: List[Tuple[np.ndarray, np.ndarray]] = []
-    cur_len = len(dest)
-    while groups and max(len(v) for v in groups.values()) > max_direct:
-        ia, ib = [], []
-        new_groups: Dict[int, List[int]] = {}
-        for t, rows in groups.items():
-            lst = new_groups.setdefault(t, [])
-            for i in range(0, len(rows), 2):
-                lst.append(len(ia))
-                ia.append(rows[i])
-                ib.append(rows[i + 1] if i + 1 < len(rows) else cur_len)
-        rounds.append((np.asarray(ia, dtype=np.int32), np.asarray(ib, dtype=np.int32)))
-        groups = new_groups
-        cur_len = len(ia)
-    C = max(1, max((len(v) for v in groups.values()), default=1))
+    cur_len = len(dest)  # the zero row past the current source
+    while len(counts) and counts.max() > max_direct:
+        starts = np.cumsum(counts) - counts
+        pos = np.flatnonzero((np.arange(len(grp)) - starts[grp]) % 2 == 0)
+        nxt = pos + 1
+        has_b = nxt < len(grp)
+        has_b[has_b] = grp[nxt[has_b]] == grp[pos[has_b]]
+        ib = np.full(len(pos), cur_len, dtype=np.int64)
+        ib[has_b] = rows[nxt[has_b]]
+        rounds.append((rows[pos].astype(np.int32), ib.astype(np.int32)))
+        grp = grp[pos]
+        rows = np.arange(len(pos), dtype=np.int64)
+        cur_len = len(pos)
+        counts = (counts + 1) // 2
+    C = max(1, int(counts.max()) if len(counts) else 1)
     direct = np.full((n_dest, C), cur_len, dtype=np.int32)  # trash = zero row
-    for t, rows in groups.items():
-        direct[t, : len(rows)] = rows
+    starts = np.cumsum(counts) - counts
+    direct[group_dest[grp], np.arange(len(grp)) - starts[grp]] = rows
     return GatherSumPlan(rounds=rounds, direct=direct, n_src=n_src)
 
 

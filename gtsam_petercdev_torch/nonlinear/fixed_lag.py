@@ -28,7 +28,7 @@ import torch
 
 from gtsam_petercdev_torch.core import manifold
 from gtsam_petercdev_torch.core.tree import tree_map
-from gtsam_petercdev_torch.device import DeviceLike
+from gtsam_petercdev_torch.device import DeviceLike, check_graph_values
 from gtsam_petercdev_torch.linear import solve as linsolve
 from gtsam_petercdev_torch.nonlinear import optimizers
 from gtsam_petercdev_torch.nonlinear.factor_graph import FactorType, NonlinearFactorGraph
@@ -78,7 +78,7 @@ def marginalize_keys(
     As BatchFixedLagSmoother::marginalize: only factors touching a dropped
     key are removed; their information is Schur-complemented onto the
     boundary keys and re-added as one linear container factor."""
-    optimizers._check_device(graph, values, device)
+    check_graph_values(graph, values, device)
     graph._materialize()
     values._materialize()
     drop = set(int(k) for k in drop_keys)

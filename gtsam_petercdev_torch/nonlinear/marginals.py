@@ -16,10 +16,9 @@ import numpy as np
 import torch
 
 from gtsam_petercdev_torch.core import manifold
-from gtsam_petercdev_torch.device import DeviceLike
+from gtsam_petercdev_torch.device import DeviceLike, check_graph_values
 from gtsam_petercdev_torch.linear import solve as linsolve
 from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
-from gtsam_petercdev_torch.nonlinear.optimizers import _check_device
 from gtsam_petercdev_torch.nonlinear.values import Values
 
 
@@ -29,7 +28,7 @@ class Marginals:
 
     def __init__(self, graph: NonlinearFactorGraph, values: Values, method: str = "dense",
                  *, device: DeviceLike = "cuda"):
-        _check_device(graph, values, device)
+        check_graph_values(graph, values, device)
         graph._materialize()
         values._materialize()
         self._values = values

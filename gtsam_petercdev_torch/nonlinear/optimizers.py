@@ -13,7 +13,9 @@ Solvers: "dense" (exact dense Cholesky), "pcg" (matrix-free block-Jacobi
 CG, linear/solve.py), "multifrontal" (the sparse supernodal solve of
 inference/elimination.py, whose bucket kernels run on the card) and "schur"
 (bundle adjustment: batched landmark elimination and a dense reduced camera
-solve, sfm/schur.py).
+solve, sfm/schur.py) and "partitioned" (the separator-Schur solve of
+parallel/partition.py: P parts folded onto the device, ranks of the
+default process group joined by all_reduce).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from gtsam_petercdev_torch.core import manifold
-from gtsam_petercdev_torch.device import DeviceLike, resolve_device
+from gtsam_petercdev_torch.device import DeviceLike, check_graph_values, resolve_device
 from gtsam_petercdev_torch.linear import solve as linsolve
 from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
 from gtsam_petercdev_torch.nonlinear.values import Values
@@ -37,10 +39,13 @@ class OptimizerParams:
     relative_error_tol: float = 1e-5
     absolute_error_tol: float = 1e-5
     error_tol: float = 0.0
-    solver: str = "dense"  # dense | pcg | multifrontal | schur
+    solver: str = "dense"  # dense | pcg | multifrontal | schur | partitioned
     pcg_tol: float = 1e-10
     pcg_max_iters: int = 1000
     verbose: bool = False
+    # solver="partitioned": the part count P (None: the default process
+    # group's ranks, 1 without one)
+    partition_devices: Optional[int] = None
 
 
 @dataclass
@@ -139,17 +144,23 @@ def _build_fns(graph: NonlinearFactorGraph, params: OptimizerParams):
                 graph, values, lam, diagonal_damping=damping, cache=cache
             )
 
+    elif params.solver == "partitioned":
+        from gtsam_petercdev_torch.parallel import partition
+
+        if damping:
+            raise ValueError('solver="partitioned" damps with lam * I (diagonal_damping=False)')
+
+        def solve(values, lam, cache):
+            return partition.solve_linearized(
+                graph, values, lam, cache=cache, n_parts=params.partition_devices
+            )
+
     else:
-        raise ValueError(f"unknown solver {params.solver}")
+        raise ValueError(
+            f"unknown solver {params.solver!r}: dense, pcg, multifrontal, schur or partitioned"
+        )
 
     return err_fn, retract_fn, solve
-
-
-def _check_device(graph: NonlinearFactorGraph, values: Values, device: DeviceLike):
-    dev = resolve_device(device)
-    for what, d in (("graph", graph.device), ("values", values.device)):
-        if d.type != dev.type:
-            raise ValueError(f"{what} is on {d}, optimizer asked for {dev}")
 
 
 def gauss_newton(
@@ -160,7 +171,7 @@ def gauss_newton(
     device: DeviceLike = "cuda",
 ) -> OptimizerResult:
     """Plain GN: linearize -> solve -> retract."""
-    _check_device(graph, values, device)
+    check_graph_values(graph, values, device)
     params = params or OptimizerParams()
     err_fn, retract_fn, solve = _build_fns(graph, params)
     err = float(err_fn(values))
@@ -190,7 +201,7 @@ def levenberg_marquardt(
     device: DeviceLike = "cuda",
 ) -> OptimizerResult:
     """Trust-region LM (LevenbergMarquardtOptimizer::tryLambda)."""
-    _check_device(graph, values, device)
+    check_graph_values(graph, values, device)
     params = params or LMParams()
     err_fn, retract_fn, solve = _build_fns(graph, params)
     err = float(err_fn(values))
@@ -253,7 +264,7 @@ def dogleg(
     radius Delta; adapt Delta from the model fidelity rho (>= 0.75 grow,
     < 0.25 shrink). One dense (H, g) per iteration; retries at a shrunk
     Delta reuse it."""
-    _check_device(graph, values, device)
+    check_graph_values(graph, values, device)
     params = params or DoglegParams()
     graph._materialize()
 
@@ -324,7 +335,7 @@ def nonlinear_conjugate_gradient(
 ) -> OptimizerResult:
     """Manifold nonlinear CG with the Fletcher-Reeves beta and a
     backtracking line search (NonlinearConjugateGradientOptimizer)."""
-    _check_device(graph, values, device)
+    check_graph_values(graph, values, device)
     params = params or OptimizerParams()
     graph._materialize()
 
