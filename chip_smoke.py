@@ -17,6 +17,7 @@
                                           result line
     python3 chip_smoke.py --partitioned-only  phases 1-2, the sphere's plans, then
                                           phase 11; no result line
+    python3 chip_smoke.py --navigation-only  phases 1-2, then phase 12; no result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -69,7 +70,8 @@ a result line:
   6. iSAM2   float64, through run_city10000 / ISAM2.update on a synthetic
              City10000-like stream (utils/synthetic.city_stream), each local
              problem ordered by the port's AMD (the plan line: the batch City
-             graph of run c)'s lines on it, its fill against CCOLAMD's, gated
+             graph of the stream's first 1,500 lines on it, its fill against
+             CCOLAMD's, gated
              as phase 4's; run c) prints its separator widths: the largest
              class, the level steps by ns and kernel, the share at ns >= 64): a) its
              first 150 lines on the card and on the CPU path, final
@@ -80,13 +82,13 @@ a result line:
              poses: the delta after every 6th update = the dense solve,
              atol 1e-9); c) CITY_LINES lines at City10000's parameters,
              counters reset just before and read just after: per-update ms,
-             launches per update, a profiled window of 50 updates (CUDA
+             launches per update, a profiled window of 25 updates (CUDA
              launches, device busy share), device->host reads per update,
              re-eliminated cliques, peak device memory, ATE against the
              stream's ground truth, the final error beside a batch GN of the
              final graph from the iSAM2 estimate; gates: finite errors, no
              bad pivots, K2 and K4 launched; it saves the whole ISAM2 every
-             450 lines (the last save holds line 1,350: phase 9 d))
+             300 lines (the last save holds line 600: phase 9 d))
   7. smart   smart-factor BA through smart_levenberg_marquardt (dense
              library algebra, no bucket kernel, as in the JAX package): a
              ragged 20-camera / 500-track rig with a behind-camera and a
@@ -115,21 +117,21 @@ a result line:
              at lag 50 (identical marginalized and deferred keys in every
              update, window estimates rel 1e-9), a checkpoint at line 100
              resumed to 150 bitwise equal on each device; b) run c)'s final
-             tree (1,086 poses): TreeMarginals of every pose against H's
+             tree (573 poses): TreeMarginals of every pose against H's
              exact inverse and against dense Marginals with its 1e-10 jitter's
              first-order term added back (both <= 1e-8 x the largest entry),
              the sweep's ms, launches and device time, adjacent poses sharing
-             a clique; c) fixed lag 100 poses over 400 lines (loop closures
+             a clique; c) fixed lag 100 poses over 250 lines (loop closures
              to marginalized poses dropped): per-update ms split into
              ISAM2.update and marginalize_leaves, live cliques (gate: at most
              the window's variables), launches per update, the window against
              a batch GN of the kept history; d) run c)'s checkpoint at line
-             1,350 loaded onto the card and fed to line 1,500: bitwise run
+             600 loaded onto the card and fed to line 750: bitwise run
              c)'s estimate, the file's bytes, save and load ms; e) the
-             concurrent incremental pair against the batch pair over 60
+             concurrent incremental pair against the batch pair over 45
              lines, lag 15, a synchronize every 15 updates (5e-3); f)
-             NonlinearISAM over 40 lines, reorder interval 10, within 1e-6
-             of a batch GN of its graph; g) float32 iSAM2 over 300 lines:
+             NonlinearISAM over 20 lines, reorder interval 10, within 1e-6
+             of a batch GN of its graph; g) float32 iSAM2 over 200 lines:
              finite, ATE within 10% of float64's, bad pivots, ms, launches;
              h) K4 / K1 / K2 against their plain versions at every shape
              they took in b)-g)
@@ -163,7 +165,32 @@ a result line:
              solve (1e-12 x the largest entry); e) K4 / K3 / K1 / K2 against
              their plain versions at every level shape of a)-d); the
              scaling table (parallel/scaling.py's)
- 12. result  a `kernels` JSON line, the card line, then the last line
+ 12. navigation  float64, after phase 7, on utils/synthetic.imu_gps_drive(1000
+             keyframes, a 200 Hz IMU; seed SEED): a) its 199,800 IMU samples
+             through one batched preintegrate pass (ms, CUDA launches),
+             every PIM field against the CPU path (rel 1e-12) and 5
+             intervals integrated one at a time (rel 1e-13); b) batch
+             levenberg_marquardt (solver="multifrontal") over its 3,000
+             variables, 999 CombinedImuFactors, 1,000 GPSFactors and 3
+             priors: the plan line (best_ordering's four candidates, cliques,
+             levels, buckets, routing), the first damped step against the
+             dense oracle (1e-8 x its largest entry), launches (counters
+             reset just before, read just after), no trial with bad pivots,
+             no plain version, ms per chained LM iteration and the device's
+             busy share, ATE, and its first 50 keyframes on the card against
+             the CPU path (LM history rel 1e-9); c) IMUKittiExampleGPS's loop
+             (models/imu_gps.py) through ISAM2 at ISAM2Params() defaults (d =
+             6, the CombinedImuFactor in row blocks) over the first 300
+             keyframes: per-update ms, launches per update, ATE, the first 50
+             updates against the card engine on the CPU (estimates rel 1e-9,
+             equal n_reeliminated), no bad pivots, K4 and K2 launched, the
+             final error over the final graph's optimum against the JAX
+             ISAM2's on the same loop (NAV_ISAM2_REF: rel 1e-6 on the proxy
+             ordering's tree, 1e-3 on its CCOLAMD tree), batch GN of
+             the final graph from the iSAM2 estimate printed, and batch LM
+             from the drive's start reaching the stored optimum (rel 1e-5); d) K4 / K3 / K1 / K2 against their plain
+             versions at every shape b) and c) gave them, float64 and float32
+ 13. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -214,19 +241,25 @@ FACTOR_KEYS = ("L", "Linv", "W", "y", "U", "ug")
 # (wildfire 0.0, relinearize threshold 0.01, skip 1); the card-vs-CPU gate
 # on its first CITY_GATE_LINES lines; the reference contract on
 # CONTRACT_POSES poses; a profiled window of PROFILE_UPDATES updates ending
-# 10 updates before the last
+# 10 updates before the last. Run c) was cut from 1,500 lines to make room
+# for phase 12 (its later updates are its slowest: on an H100, 169.9 s for
+# 1,500 lines, 112.4 s for 1,000, 65.1 s for 750); the plan line still
+# orders the batch graph of the stream's first CITY_PLAN_LINES lines, the
+# graph of the JAX package's CCOLAMD reference
+# (tests/data/ordering_reference.json)
 CITY_POSES = 3687
-CITY_LINES = 1500
+CITY_LINES = 750
+CITY_PLAN_LINES = 1500
 CITY_GATE_LINES = 150
 # where the card's wildfire descent and the CPU's part, the change one of
 # them saw must be below this (a rounding-size change, against poses of
 # size 1-100): see phase 6 gate a)
 ROUNDING_CHANGE = 1e-12
 CONTRACT_POSES = 60
-PROFILE_UPDATES = 50
+PROFILE_UPDATES = 25
 # run c) saves the whole ISAM2 at every CITY_PROGRESS lines: its last save
-# holds line 1,350, from which phase 9 d) resumes to CITY_LINES
-CITY_PROGRESS = 450
+# holds line 600, from which phase 9 d) resumes to CITY_LINES
+CITY_PROGRESS = 300
 # phase 9 (the iSAM2 family, float64 unless stated), on the same stream: a)
 # card = CPU over FAMILY_GATE_LINES lines (fixed lag FAMILY_GATE_LAG poses,
 # a checkpoint at FAMILY_GATE_CKPT); c) fixed-lag smoothing over
@@ -235,23 +268,24 @@ CITY_PROGRESS = 450
 # CONCURRENT_SYNC updates; f) NonlinearISAM over NISAM_LINES lines, reorder
 # interval NISAM_REORDER; g) float32 iSAM2 over F32_LINES lines. c), e), f)
 # and g) are cut for the script's time (c) from 1,000 lines, which saves
-# ~40 s against a 1,200 s limit that the uncut script came within 124 s of;
-# e) from 300 lines at lag 50 and a synchronize every 25; f) from 200
-# lines; g) from 500 lines): the batch filter, the batch smoother and
+# ~40 s against a 1,200 s limit that the uncut script came within 124 s of,
+# and from 400 to make room for phase 12; e) from 300 lines at lag 50 and a
+# synchronize every 25, then from 60; f) from 200 lines, then from 40; g)
+# from 500 lines, then from 300): the batch filter, the batch smoother and
 # NonlinearISAM hold one factor batch per update, and each linearization
 # walks them all: their time grows with the stream's length (PERF.md
 # section 4)
 FAMILY_GATE_LINES = 150
 FAMILY_GATE_LAG = 50
 FAMILY_GATE_CKPT = 100
-FIXED_LAG_LINES = 400
+FIXED_LAG_LINES = 250
 FIXED_LAG = 100
-CONCURRENT_LINES = 60
+CONCURRENT_LINES = 45
 CONCURRENT_LAG = 15
 CONCURRENT_SYNC = 15
-NISAM_LINES = 40
+NISAM_LINES = 20
 NISAM_REORDER = 10
-F32_LINES = 300
+F32_LINES = 200
 # the d = 3 bucket shapes of that run's level steps and wildfire rounds, as
 # tools/bench_bucket_shapes.py wrote them
 ISAM2_SHAPES = "tests/data/isam2_bucket_shapes.json"
@@ -293,6 +327,39 @@ PART_GATE = 1e-8
 PART_LM_GATE = 1e-9
 PART_F32_REF = "tests/data/partitioned_f32_reference.json"
 PART_NE_GATE = 1e-12
+# phase 12 (navigation, float64): utils/synthetic.imu_gps_drive of
+# NAV_KEYFRAMES keyframes (one a second) at a NAV_RATE Hz IMU; a) the
+# batched preintegrate pass against NAV_ONE_AT_A_TIME intervals integrated
+# one at a time; b) batch LM of at most NAV_LM_ITERS iterations, its
+# iteration timed NAV_CHAIN chained, and the first NAV_CUT keyframes on the
+# card against the CPU path over NAV_CUT_ITERS LM iterations; c) ISAM2 over
+# the first NAV_ISAM2_KEYFRAMES keyframes, its first NAV_ISAM2_GATE updates
+# against the card engine on the CPU; its final error over the final graph's
+# optimum against the JAX ISAM2's on the same loop, both read from
+# NAV_ISAM2_REF (tools/imu_isam2_reference.py, CPU: the optimum is LM to
+# convergence polished by dense GN): to NAV_ISAM2_REF_GATE (relative; the
+# margin covers the drive's PIMs made on the card, within 1e-12 of the
+# CPU's) against the JAX ISAM2 with its tree ordered by the proxy COLAMD
+# (the port's AMD tree gives the same error on this chain, rel ~1e-11 on
+# the CPU), and to NAV_ORDERING_GATE against the JAX ISAM2 on its own
+# CCOLAMD tree (where the wildfire stops elsewhere: rel 1.9e-4 on the CPU);
+# batch LM (NAV_ISAM2_LM_ITERS iterations) from the drive's start reaches
+# that optimum to NAV_OPT_GATE (relative)
+NAV_KEYFRAMES = 1000
+NAV_RATE = 200
+NAV_ONE_AT_A_TIME = 5
+NAV_LM_ITERS = 30
+NAV_CHAIN = 4
+NAV_CUT = 50
+NAV_CUT_ITERS = 4
+NAV_ISAM2_KEYFRAMES = 300
+NAV_ISAM2_GATE = 50
+NAV_ISAM2_LM_ITERS = 25
+NAV_OPT_GATE = 1e-5
+NAV_ISAM2_REF = "tests/data/imu_isam2_reference.json"
+NAV_ISAM2_REF_GATE = 1e-6
+NAV_ORDERING_GATE = 1e-3
+NAV_PROGRESS = 25
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
@@ -316,8 +383,12 @@ ROUTE_KERNEL = {"global": "partial_cholesky", "smem": "partial_cholesky_smem",
                 "blocks": "partial_cholesky_blocks"}
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A line of the run's log, after the script's clock in seconds."""
+    print(f"[{time.perf_counter() - T_START:7.1f}] {msg}", flush=True)
 
 
 def card_line():
@@ -625,6 +696,23 @@ def chained_ms(torch, step, values, n_chain):
     return sorted(times)[1], cur
 
 
+def profile_once(torch, fn):
+    """fn() once under torch.profiler (after a warm call): (device busy ms,
+    CUDA kernel launches), or None when the profiler shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    k = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+    if not k:
+        return None
+    return sum(e.self_device_time_total for e in k) / 1e3, sum(e.count for e in k)
+
+
 def profile_step(torch, step, values, top=12):
     """One step under torch.profiler: (device busy ms, kernel launches,
     [(kernel, ms, calls)], [(host op, self ms, calls)]), or None when the
@@ -653,8 +741,9 @@ def profile_step(torch, step, values, top=12):
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top], host[:top]
 
 
-def time_step(torch, v1, label, unit, step, graph, values, n_chain):
-    """Chained time of `step`, its launches per step, and its profile."""
+def time_step(torch, v1, label, unit, step, graph, values, n_chain, prof_out=None):
+    """Chained time of `step`, its launches per step, and its profile
+    (`prof_out`, a dict, gets its device busy ms and kernel launches)."""
     v1.reset_launch_counts()
     step(values)
     per_step = v1.launch_counts()
@@ -669,6 +758,8 @@ def time_step(torch, v1, label, unit, step, graph, values, n_chain):
         log(f"{label} device time: not measured (no device events)")
         return ms, per_step
     busy, n_launch, rows, host = prof
+    if prof_out is not None:
+        prof_out.update(busy_ms=busy, launches=n_launch)
     log(f"{label} device busy {busy:.3f} ms of {ms:.3f} ms ({100.0 * busy / ms:.1f}%); "
         f"top kernels by device time:")
     for key, kms, calls in rows:
@@ -980,10 +1071,11 @@ def run_isam2(torch, here, v1):
     from gtsam_petercdev_torch.inference import symbolic
 
     lines, gt = synthetic.city_stream(CITY_POSES, seed=SEED)
-    # the plan line: the City graph of run c)'s lines, ordered as the
-    # engine orders each local problem (ccolamd_ordering: the port's AMD)
-    e = np.array([[int(ln.split()[1]), int(ln.split()[3])] for ln in lines[:CITY_LINES]])
-    amd, city_order = ordering_line(symbolic, f"City ({CITY_LINES} lines, batch)",
+    # the plan line: the City graph of the stream's first CITY_PLAN_LINES
+    # lines (the reference's graph), ordered as the engine orders each local
+    # problem (ccolamd_ordering: the port's AMD)
+    e = np.array([[int(ln.split()[1]), int(ln.split()[3])] for ln in lines[:CITY_PLAN_LINES]])
+    amd, city_order = ordering_line(symbolic, f"City ({CITY_PLAN_LINES} lines, batch)",
                                     int(e.max()) + 1, e, 3, ordering_ref(here)["city"],
                                     chosen="amd")
     cp = symbolic.symbolic_eliminate(int(e.max()) + 1, [e], 3, ordering=amd)
@@ -1413,7 +1505,7 @@ def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
     """Phase 9: the iSAM2 family (leaf marginalization, Bayes-tree
     marginals, fixed-lag and concurrent smoothing, NonlinearISAM, engine
     checkpoints, a float32 run). `city`: phase 6 c)'s final tree, its
-    estimate and its checkpoint at line 1,350; without it (the
+    estimate and its checkpoint at line 600; without it (the
     --isam2-family-only run) that run is made here, unprofiled. `dev`: the
     device of every path but a)'s CPU reference (a rehearsal passes "cpu")."""
     import numpy as np
@@ -1602,7 +1694,7 @@ def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
                                  f"launches {launches}")
         del fl, g, v, gn
 
-        # d) phase 6 c)'s checkpoint at line 1,350, onto the card, fed to
+        # d) phase 6 c)'s checkpoint at line 600, onto the card, fed to
         # the end: bitwise the uninterrupted run
         ck = city["checkpoint"]
         sync()
@@ -2089,6 +2181,338 @@ def run_host_engine(torch, here, isam2, card_gate=None, dev="cuda"):
     return out
 
 
+# --- phase 12: navigation --------------------------------------------------------------------
+
+
+def nav_rel(a, b):
+    """Largest |a - b| over b's largest entry, leafwise over two PIMs."""
+    return max(((x.double().cpu() - y.double().cpu()).abs().max()
+                / y.double().cpu().abs().max().clamp_min(1e-300)).item() for x, y in zip(a, b))
+
+
+def lm_bad_pivot_trials(levenberg_marquardt, graph, values, params, device):
+    """levenberg_marquardt with its trial lines captured: (result, the count
+    of trials rejected for clamped pivots)."""
+    import dataclasses
+
+    with contextlib.redirect_stdout(io.StringIO()) as lines:
+        res = levenberg_marquardt(graph, values, dataclasses.replace(params, verbose=True),
+                                  device=device)
+    return res, sum("bad pivots" in ln for ln in lines.getvalue().splitlines())
+
+
+def nav_flat(torch, values):
+    """{type: [N, k] CPU tensor} of a Values, each variable's leaves flattened."""
+    out = {}
+    for t in values.types():
+        p = values.params(t)
+        n = len(values.type_keys(t))
+        out[t] = torch.cat([x.reshape(n, -1) for x in (p if isinstance(p, tuple) else (p,))],
+                           1).cpu()
+    return out
+
+
+def run_navigation(torch, v1, dev="cuda"):
+    """Phase 12 (float64) on imu_gps_drive(NAV_KEYFRAMES, NAV_RATE): a) the
+    whole drive's IMU samples through one batched preintegrate pass; b)
+    batch LM over the drive (solver="multifrontal"); c) IMUKittiExampleGPS's
+    loop through ISAM2 over its first NAV_ISAM2_KEYFRAMES keyframes; d) the
+    four kernels at every shape they took in b) and c)."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.inference import elimination, kernels, symbolic
+    from gtsam_petercdev_torch.linear import solve as linsolve
+    from gtsam_petercdev_torch.models import imu_gps
+    from gtsam_petercdev_torch.navigation import preintegration as pre
+    from gtsam_petercdev_torch.nonlinear.optimizers import (
+        LMParams, OptimizerParams, gauss_newton, levenberg_marquardt)
+    from gtsam_petercdev_torch.ops import cholesky_v2 as v2
+    from gtsam_petercdev_torch.utils import convert, synthetic
+
+    out = {}
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    va, fa, truth = synthetic.imu_gps_drive(NAV_KEYFRAMES, NAV_RATE, seed=SEED, device=dev)
+    K = NAV_KEYFRAMES
+    log(f"navigation drive: {K} keyframes, {K - 1} intervals of {NAV_RATE} IMU samples "
+        f"({(K - 1) * NAV_RATE} in all), {K} GPS fixes, made on {dev} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # a) the whole drive's samples through one batched preintegrate pass
+    secs = {}
+    t_sub = time.perf_counter()
+    params = pre.default_params(device=dev)
+    imu = [torch.as_tensor(truth["imu"][k]).to(dev) for k in ("acc", "omega", "dts")]
+    pass_ = lambda: pre.preintegrate(params, *imu)
+    pim = pass_()
+    sync()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pass_()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    pass_ms = sorted(ms)[1]
+    prof = profile_once(torch, pass_) if dev == "cuda" else None
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # CPU bmm of [999, 9, 9] costs ms a call across threads
+    t0 = time.perf_counter()
+    cpu = pre.preintegrate(pre.default_params(device="cpu"), *(a.cpu() for a in imu))
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    rel_cpu = nav_rel(pim, cpu)
+    pick = np.linspace(0, K - 2, NAV_ONE_AT_A_TIME).round().astype(int)
+    rel_one = max(nav_rel([f[i] for f in pim], pre.preintegrate(params, *(a[i] for a in imu)))
+                  for i in pick)
+    drive_rel = nav_rel(pim, [torch.as_tensor(f) for f in fa[3][2]["pim"]])
+    out["a"] = dict(intervals=K - 1, samples=(K - 1) * NAV_RATE, pass_ms=pass_ms,
+                    device_busy_ms=prof[0] if prof else None,
+                    cuda_launches=prof[1] if prof else None, cpu_s=cpu_s, rel_cpu=rel_cpu,
+                    rel_one_at_a_time=rel_one, intervals_one_at_a_time=pick.tolist())
+    log(f"navigation a) preintegrate: {K - 1} intervals x {NAV_RATE} samples in one batched "
+        f"pass: {pass_ms:.3f} ms (median of 3)"
+        + (f", device busy {prof[0]:.3f} ms, {prof[1]} CUDA kernel launches "
+           f"({prof[1] / NAV_RATE:.1f} a sample step)" if prof else "")
+        + f"; every PIM field against the CPU path ({cpu_s:.1f} s, one thread) rel "
+          f"{rel_cpu:.3e} (gate 1e-12); intervals "
+          f"{pick.tolist()} integrated one at a time rel {rel_one:.3e} (gate 1e-13); the "
+          f"drive's own PIMs rel {drive_rel:.3e}")
+    if not (rel_cpu <= 1e-12 and rel_one <= 1e-13 and drive_rel <= 1e-13):
+        raise AssertionError("navigation a): preintegration differs")
+
+    secs["a"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+
+    # b) batch LM over the whole drive, solver="multifrontal"
+    g = convert.graph_from_arrays(fa, device=dev)
+    v = convert.values_from_arrays(va, device=dev)
+    n_fac = {name: len(k) for name, k, _, _ in fa}
+    t0 = time.perf_counter()
+    structure = elimination.graph_structure(g, v)
+    lg0 = g.linearize(v)
+    plan, maps = elimination._graph_plan(g, lg0)
+    n_vars = len(v)
+    edges = np.concatenate([np.stack([s.gids[a], s.gids[b]], axis=1) for s in structure
+                            for a in range(len(s.gids)) for b in range(a + 1, len(s.gids))])
+    cands = symbolic.ordering_candidates(n_vars, edges)
+    F = {name: 36 * (f - 1) + 1 for name, _, f in cands}
+    best = min(cands, key=lambda c: c[2])
+    if not np.array_equal(best[1], plan.perm):
+        raise AssertionError("navigation b): the plan's ordering is not best_ordering's")
+    facts = plan_facts(elimination, maps)
+    out["b"] = dict(variables=n_vars, factors=n_fac, ordering=dict(chosen=best[0], F_size=F),
+                    plan=facts, plan_s=time.perf_counter() - t0)
+    log(f"navigation b) graph: {n_vars} variables (Pose3 / Vector3 / ConstantBias, d = 6), "
+        f"factors {n_fac}; plan ({out['b']['plan_s']:.1f} s): ordering {best[0]} (F_size "
+        + ", ".join(f"{k} {x}" for k, x in F.items()) + f"), {facts['cliques']} cliques, "
+        f"{facts['levels']} levels, {facts['buckets']} buckets, routing {facts['routes']}")
+    log_routing(elimination, "navigation b) plan", maps)
+
+    # the first damped step against the dense oracle
+    lam = LMParams().lambda_initial
+    t0 = time.perf_counter()
+    cache = {"mf_lg": lg0}
+    delta, _ = elimination.solve_linearized(g, v, lam, cache=cache)
+    bad0 = int(cache["bad_pivots"])
+    H, gvec = linsolve.assemble_dense(lg0)
+    x_dense = linsolve.dense_solve(H, gvec, lam)
+    x_mf = linsolve.flatten_delta(lg0, delta)
+    step_err = ((x_mf - x_dense).abs().max() / x_dense.abs().max()).item()
+    del H, gvec, x_dense, x_mf
+    log(f"navigation b) first damped step (lambda {lam:g}) against the dense oracle: max abs "
+        f"difference {step_err:.3e} x its largest entry (gate 1e-8); bad pivots {bad0} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (step_err <= 1e-8 and bad0 == 0):
+        raise AssertionError("navigation b): the first damped step differs from the dense oracle")
+
+    # LM through the entry point; counters reset just before, read just after
+    lm_params = LMParams(solver="multifrontal", max_iterations=NAV_LM_ITERS)
+    v1.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counting_plain() as plain_calls:
+        lm, bad_trials = lm_bad_pivot_trials(levenberg_marquardt, g, v, lm_params, dev)
+        sync()
+    lm_s = time.perf_counter() - t0
+    lm_launches = v1.launch_counts()
+    check_result(lm, "navigation b) LM")
+    ate_lm = imu_gps.ate(lm.values, truth)
+    out["b"].update(lm_history=lm.error_history, lm_iterations=lm.iterations, lm_s=lm_s,
+                    launches=lm_launches, launches_per_iteration={
+                        k: x / max(1, lm.iterations) for k, x in lm_launches.items()},
+                    bad_pivot_trials=bad_trials, plain_calls=dict(plain_calls), ate=ate_lm,
+                    first_step_rel=step_err)
+    log(f"navigation b) LM: error {lm.error_history[0]:.6e} -> {lm.error:.6e} in "
+        f"{lm.iterations} iterations ({lm_s:.2f} s); launches {lm_launches}; trials with bad "
+        f"pivots {bad_trials}; plain versions called {dict(plain_calls)}; ATE {ate_lm:.6f} m "
+        f"(start {imu_gps.ate(v, truth):.6f})")
+    if bad_trials or (dev == "cuda" and plain_calls):
+        raise AssertionError("navigation b): bad pivots or a plain version on the card")
+    if dev == "cuda" and not lm_launches["backsolve_bucket"] > 0:
+        raise AssertionError(f"navigation b): K2 never launched: {lm_launches}")
+
+    # ms per LM iteration: linearize, damped multifrontal solve, retract
+    types = sorted(lg0.type_counts)
+    offs = elimination.type_offsets(lg0.type_counts)
+    dims = {t: x.shape[1] for t, x in delta.items()}
+
+    def lm_step(values):
+        lg = g.linearize(values)
+        x = elimination.multifrontal_solve(maps, tuple((lb.A, lb.b) for lb in lg.batches), lam)
+        return values.retract({t: x[offs[t]: offs[t] + lg0.type_counts[t], : dims[t]]
+                               for t in types})
+
+    if dev == "cuda":
+        t0 = time.perf_counter()
+        prof = {}
+        it_ms, per_it = time_step(torch, v1, "navigation b) LM iteration", "iter", lm_step, g, v,
+                                  NAV_CHAIN, prof_out=prof)
+        busy = prof.get("busy_ms")
+        out["b"].update(ms_per_iteration=it_ms, launches_per_step=per_it, device_busy_ms=busy,
+                        device_busy_share=busy / it_ms if busy else None,
+                        timing_s=time.perf_counter() - t0)
+
+    # the drive's first NAV_CUT keyframes: the card against the CPU path
+    t0 = time.perf_counter()
+    va_c, fa_c, _ = synthetic.imu_gps_drive(NAV_CUT, NAV_RATE, seed=SEED, device="cpu")
+    hist = {}
+    for d in dict.fromkeys((dev, "cpu")):
+        hist[d] = levenberg_marquardt(convert.graph_from_arrays(fa_c, device=d),
+                                      convert.values_from_arrays(va_c, device=d),
+                                      LMParams(solver="multifrontal", max_iterations=NAV_CUT_ITERS),
+                                      device=d).error_history
+    cut_rel = max(abs(a - b) / abs(b) for a, b in zip(hist[dev], hist["cpu"]))
+    out["b"].update(cut_keyframes=NAV_CUT, cut_history=hist[dev], cut_rel=cut_rel)
+    log(f"navigation b) {NAV_CUT} keyframes, LM on {dev} against the CPU path: "
+        f"{['%.9e' % e for e in hist[dev]]}, rel {cut_rel:.3e} (gate 1e-9; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not (len(hist[dev]) == len(hist["cpu"]) and cut_rel <= 1e-9):
+        raise AssertionError("navigation b): the card's LM history differs from the CPU path's")
+    shapes = {(bm.B, bm.nf, bm.ns, maps.plan.d) for bm in maps.buckets}
+    del g, v, lg0, lm, structure
+
+    secs["b"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+
+    # c) IMUKittiExampleGPS's loop through ISAM2 (ISAM2Params() defaults, d = 6)
+    n_is = NAV_ISAM2_KEYFRAMES
+    snap = {}
+
+    t_c = time.perf_counter()
+
+    def cb(k, isam, res):
+        if k == NAV_ISAM2_GATE - 1:
+            snap["est"] = isam.calculate_estimate()
+        snap.setdefault("rounds", []).append(res.wildfire_rounds)
+        if (k + 1) % NAV_PROGRESS == 0:
+            log(f"navigation c) update {k + 1}: {time.perf_counter() - t_c:.1f} s; the last "
+                f"{NAV_PROGRESS}: wildfire rounds mean {np.mean(snap['rounds'][-NAV_PROGRESS:]):.1f}, "
+                f"cliques {res.n_cliques}, n_reeliminated {res.n_reeliminated}")
+
+    v1.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ShapeRecorder() as rec:
+        run = imu_gps.run_imu_gps_isam2(va, fa, truth, n_is, device=dev, step_cb=cb)
+    sync()
+    is_s = time.perf_counter() - t0
+    is_launches = v1.launch_counts()
+    est = run.estimate()
+    err = float(run.graph.error(est))
+    bad = sum(int(u.bad_pivots) for u in run.updates)
+    ate_is = imu_gps.ate(est, truth, n_is)
+    st = stats_ms(run.update_ms[1:])  # the first update holds the priors and the warm-up
+    cpu_run = imu_gps.run_imu_gps_isam2(va, fa, truth, NAV_ISAM2_GATE, device="cpu")
+    cpu_est = cpu_run.estimate()
+    a, b = nav_flat(torch, snap["est"]), nav_flat(torch, cpu_est)
+    gate_rel = (max((a[t] - b[t]).abs().max().item() for t in b)
+                / max(x.abs().max().item() for x in b.values()))
+    re_card = [u.n_reeliminated for u in run.updates[:NAV_ISAM2_GATE]]
+    re_cpu = [u.n_reeliminated for u in cpu_run.updates]
+    # the JAX ISAM2 on this loop and the final graph's optimum, on the CPU
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), NAV_ISAM2_REF)) as fh:
+        ref = json.load(fh)
+    if (ref["drive_keyframes"], ref["isam2_keyframes"], ref["rate_hz"], ref["seed"],
+            ref["bias_walk"]) != (K, n_is, NAV_RATE, SEED, list(synthetic.DRIVE_BIAS_WALK)):
+        raise AssertionError(f"{NAV_ISAM2_REF} is not this loop: {ref}")
+    optimum, ratio_jax = ref["optimum"], ref["jax_isam2_proxy_over_optimum"]
+    ratio_rel = abs(err / optimum - ratio_jax) / ratio_jax
+    ratio_own = ref["jax_isam2_over_optimum"]
+    ratio_rel_own = abs(err / optimum - ratio_own) / ratio_own
+    # the final graph by batch GN (as phase 6 c)) from the iSAM2 estimate,
+    # and by batch LM from the drive's start cut to the same keyframes
+    gn = gauss_newton(run.graph, est, OptimizerParams(solver="multifrontal", max_iterations=5),
+                      device=dev)
+    t0 = time.perf_counter()
+    lm_start = levenberg_marquardt(run.graph, imu_gps.start_values(va, n_is, dev), LMParams(
+        solver="multifrontal", max_iterations=NAV_ISAM2_LM_ITERS, relative_error_tol=1e-12,
+        absolute_error_tol=1e-12), device=dev)
+    lm_s = time.perf_counter() - t0
+    opt_rel = (lm_start.error - optimum) / optimum
+    out["c"] = dict(keyframes=n_is, wall_s=is_s, update_ms=st, launches=is_launches,
+                    launches_per_update={k: x / n_is for k, x in is_launches.items()},
+                    error=err, optimum=optimum, isam2_over_optimum=err / optimum,
+                    jax_isam2_proxy_over_optimum=ratio_jax, ratio_rel=ratio_rel,
+                    jax_isam2_over_optimum=ratio_own, ratio_rel_own_ordering=ratio_rel_own,
+                    batch_gn_history=gn.error_history,
+                    batch_lm_from_start=lm_start.error_history, optimum_rel=opt_rel,
+                    lm_s=lm_s, ate=ate_is,
+                    ate_optimum=imu_gps.ate(lm_start.values, truth, n_is), bad_pivots=bad,
+                    gate_keyframes=NAV_ISAM2_GATE, gate_rel=gate_rel,
+                    gate_reeliminated_equal=re_card == re_cpu,
+                    n_reeliminated_mean=float(np.mean([u.n_reeliminated for u in run.updates])),
+                    row_blocks=run.isam.row_blocks(convert.factor_type("CombinedImuFactor")))
+    log(f"navigation c) ISAM2 over {n_is} keyframes ({is_s:.1f} s): per-update ms mean "
+        f"{st['mean']:.3f} p50 {st['p50']:.3f} p99 {st['p99']:.3f} max {st['max']:.3f} (updates "
+        f"2-{n_is}); launches {is_launches} ("
+        + ", ".join(f"{k} {x / n_is:.3f}" for k, x in is_launches.items()) + " per update); "
+        f"CombinedImuFactor in {out['c']['row_blocks']} row blocks; n_reeliminated mean "
+        f"{out['c']['n_reeliminated_mean']:.2f}; bad pivots {bad}; ATE {ate_is:.6f} m")
+    log(f"navigation c) first {NAV_ISAM2_GATE} updates, card against the card engine on the "
+        f"CPU: estimates rel {gate_rel:.3e} (gate 1e-9), n_reeliminated equal in every update "
+        f"{re_card == re_cpu}")
+    log(f"navigation c) final error {err:.9e}, {err / optimum:.9f} x the final graph's optimum "
+        f"{optimum:.9e}; the JAX ISAM2 on this loop (CPU, {NAV_ISAM2_REF}) on the proxy "
+        f"ordering {ratio_jax:.9f} x: rel {ratio_rel:.3e} (gate {NAV_ISAM2_REF_GATE}); on its "
+        f"own CCOLAMD tree {ratio_own:.9f} x: rel {ratio_rel_own:.3e} (gate {NAV_ORDERING_GATE}); "
+        f"batch GN of the final graph from the iSAM2 estimate "
+        f"{['%.6e' % e for e in gn.error_history]}; batch LM from the drive's start "
+        f"{lm_start.error:.9e} after {lm_start.iterations} iterations ({lm_s:.1f} s; ATE "
+        f"{out['c']['ate_optimum']:.6f} m), rel {opt_rel:.3e} above the optimum (gate "
+        f"{NAV_OPT_GATE})")
+    finite = all(x == x and abs(x) != float("inf") for x in [err, ate_is, lm_start.error])
+    if not (finite and bad == 0 and gate_rel <= 1e-9 and re_card == re_cpu
+            and ratio_rel <= NAV_ISAM2_REF_GATE and ratio_rel_own <= NAV_ORDERING_GATE
+            and -1e-9 <= opt_rel <= NAV_OPT_GATE):
+        raise AssertionError("navigation c) failed its gates")
+    if dev == "cuda" and not (is_launches["backsolve_bucket"] > 0
+                              and is_launches["partial_cholesky_blocks"] > 0):
+        raise AssertionError(f"navigation c): K4 or K2 never launched: {is_launches}")
+    for k in rec.shapes.values():
+        shapes.update(s[:4] for s in k)
+
+    secs["c"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+
+    # d) the four kernels at every shape of b) and c), float64 and float32
+    cases = sorted(shapes)
+    errs = {}
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        check_kernels(torch, (v2, v1, kernels), cases, {"float64": {}, "float32": {}},
+                      extras=False, errs_out=errs)
+    out["d"] = dict(distinct=len(cases), shapes=cases, max_abs_err=errs)
+    log(f"navigation d) {len(cases)} distinct (B, nf, ns, d) shapes of b) and c), each kernel "
+        f"against its plain version in float64 and float32: max abs err {errs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    secs["d"] = time.perf_counter() - t_sub
+    out["launches"] = {k: lm_launches[k] + is_launches[k] for k in lm_launches}
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"navigation phase: {out['phase_s']:.1f} s (" + ", ".join(
+        f"{k}) {x:.1f} s" for k, x in secs.items()) + ")")
+    return out
+
+
 # --- phase 7: smart-factor bundle adjustment --------------------------------------------
 
 
@@ -2477,6 +2901,7 @@ def main():
     optimizers_only = "--optimizers-only" in sys.argv[1:]
     family_only = "--isam2-family-only" in sys.argv[1:]
     partitioned_only = "--partitioned-only" in sys.argv[1:]
+    navigation_only = "--navigation-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -2530,6 +2955,12 @@ def main():
             isam2_timed[name].setdefault(ROUTE_KERNEL[b[col]], []).append(b[:3] + (3,))
     log(f"iSAM2 d = 3 buckets ({ISAM2_SHAPES}): {len(isam2_level)} level shapes, "
         f"{len(isam2_wild)} wildfire shapes, {len(isam2_cases)} distinct")
+
+    if navigation_only:
+        # phase 12 alone; no result line
+        run_navigation(torch, v1)
+        log(f"navigation-only run passed in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
 
     if smart_only:
         # phase 7 alone (its path runs no bucket kernel); no result line
@@ -2924,9 +3355,13 @@ def main():
     smart_res = run_smart(torch, here)
     log(f"smart phase done at {time.perf_counter() - t_start:.1f} s")
 
+    # 12. navigation: the IMU + GPS drive through preintegrate, batch LM and ISAM2
+    nav_res = run_navigation(torch, v1)
+    log(f"navigation phase done at {time.perf_counter() - t_start:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 11. result lines
+    # 13. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
@@ -2943,7 +3378,8 @@ def main():
         out.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=(launches[kname] + isam2["launches"][kname] + mixed_launches[kname]
-                      + family["launches"][kname] + part_res["launches"][kname]),
+                      + family["launches"][kname] + part_res["launches"][kname]
+                      + nav_res["launches"][kname]),
             max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
@@ -2956,6 +3392,8 @@ def main():
             fixed_lag_launches_per_update=family["c"]["launches_per_update"][kname],
             launches_partitioned_path=part_res["launches"][kname],
             partitioned_launches_per_solve_p4=part_res["a"][PARTS.index(4)]["launches"][kname],
+            launches_navigation_lm=nav_res["b"]["launches"][kname],
+            launches_navigation_isam2=nav_res["c"]["launches"][kname],
             cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname]
             + opt_res["mixed"]["cuda_launches"][kname],
             cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname]
@@ -2971,7 +3409,8 @@ def main():
                                   "ba_lm_iters_per_s": ba_iters_per_s, "ba_lm_reference": c2,
                                   "isam2": isam2, "isam2_family": family, "smart": smart_res,
                                   "optimizers": opt_res, "plans": plans,
-                                  "host_engine": host_res, "partitioned": part_res}),
+                                  "host_engine": host_res, "partitioned": part_res,
+                                  "navigation": nav_res}),
                      allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

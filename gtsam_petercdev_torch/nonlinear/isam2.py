@@ -211,6 +211,9 @@ class ISAM2:
         self._gid_row: List[int] = []  # row in the type store
         self._stores: Dict[str, _TypeStore] = {}
         self._groups: List[Optional[_Group]] = []
+        # group -> (factor type, its row-block groups in block order), for
+        # the groups of factors wider than the block dimension
+        self._families: Dict[int, Tuple[Any, Tuple[int, ...]]] = {}
         self._marginalized: Set[int] = set()  # keys eliminated out of the tree
         # gids in the scope of persistent marginal factors: never relinearized
         # (the reference's fixedVariables_, ISAM2.cpp:693)
@@ -248,12 +251,19 @@ class ISAM2:
                     raise ValueError(f"factor references marginalized key(s) {bad[:4]}")
                 gids = np.asarray([[self._key_gid[int(k)] for k in row] for row in batch.keys],
                                   dtype=np.int64)
-                for b in self._engine_batches(batch):
-                    g = self._group_for(b)
-                    rows = self._groups[g].append(
-                        self._to_device(b.params), self._to_device(b.sqrt_info),
-                        np.asarray(b.keys, dtype=np.int64))
-                    A, bb = self._linearize_rows(g, rows)
+                blocks = list(self._engine_batches(batch))
+                fam = tuple(self._group_for(b) for b in blocks)
+                if len(fam) > 1:
+                    for g in fam:
+                        self._families[g] = (batch.ftype, fam)
+                # a factor split into row blocks is linearized once, whole,
+                # and its whitened rows shared out to the blocks
+                params, sqrt_info = self._to_device(batch.params), self._to_device(batch.sqrt_info)
+                r_w, Js = self._linearize(batch.ftype, batch.robust, self._slot_rows(batch.keys),
+                                          params, sqrt_info)
+                for g, (a, z), (A, bb) in self._share_rows(fam, r_w, Js):
+                    self._groups[g].append(params, sqrt_info[:, a:z],
+                                           np.asarray(batch.keys, dtype=np.int64))
                     new_units.extend((g, r) for r in eng.add_factors(g, gids, A, bb))
                 res.n_new_factors += batch.size
                 marked.update(int(v) for v in gids.reshape(-1))
@@ -279,10 +289,17 @@ class ISAM2:
             for gid in relin:
                 for (g, r) in eng.var_factors.get(gid, ()):
                     touched.setdefault(g, set()).add(r)
-            for g, rows in touched.items():
-                rows = sorted(rows)
-                A, bb = self._linearize_rows(g, rows)
-                eng.set_factor_rows(g, rows, A, bb)
+            done: Set[int] = set()
+            for g in touched:
+                ftype, fam = self._families.get(g, (self._groups[g].ftype, (g,)))
+                if fam[0] in done:
+                    continue
+                done.add(fam[0])
+                # the row blocks of a factor hold the same factor rows
+                rows = sorted(set().union(*(touched.get(h, ()) for h in fam)))
+                r_w, Js = self._linearize_rows(ftype, fam, rows)
+                for h, _, (A, bb) in self._share_rows(fam, r_w, Js):
+                    eng.set_factor_rows(h, rows, A, bb)
 
         # 5. re-eliminate the affected top + wildfire
         stats = eng.update(new_keys=new_gids, new_fac_units=new_units, marked=marked,
@@ -481,27 +498,41 @@ class ISAM2:
             self._groups[g] = _Group(b.ftype, b.robust, float(b.sign))
         return g
 
-    def _linearize_rows(self, g: int, rows: List[int]):
-        """(Re-)linearize some of one group's factors at the current theta:
-        (A per slot [N, d, dim_k], b [N, d]), residual rows padded to d."""
-        grp = self._groups[g]
-        ftype = grp.ftype
-        d = self._engine.d
-        keys_sel = grp.keys[rows]  # [N, K]
-        # one upload: the factor rows, then each slot's rows in its type store
-        idx = self._engine._upload(np.stack(
-            [np.asarray(rows)] + [[self._gid_row[self._key_gid[int(k)]] for k in keys_sel[:, kk]]
-                                  for kk in range(keys_sel.shape[1])]))
-        params = tree_map(lambda a: a[idx[0]], grp.params)
-        xs = tuple(tree_map(lambda a, i=kk: a[idx[1 + i]], self._stores[t].params)
+    def _slot_rows(self, keys, rows=None):
+        """One upload: `rows` where given, then each slot's rows of keys
+        [N, K] in its type store."""
+        slots = [[self._gid_row[self._key_gid[int(k)]] for k in keys[:, kk]]
+                 for kk in range(keys.shape[1])]
+        return self._engine._upload(np.asarray(([] if rows is None else [rows]) + slots,
+                                               dtype=np.int64))
+
+    def _linearize(self, ftype, robust, slot_idx, params, sqrt_info):
+        """Whitened residual [N, rd] and Jacobians per slot [N, rd, dim_k] at
+        the current theta, the slots' variables at store rows slot_idx [K, N]."""
+        xs = tuple(tree_map(lambda a, i=kk: a[slot_idx[i]], self._stores[t].params)
                    for kk, t in enumerate(ftype.var_types))
-        r_w, Js = residual_and_jac(ftype, grp.robust, xs, params, grp.sqrt_info[idx[0]])
-        rd = ftype.resid_dim
-        b = -r_w
-        if rd < d:
-            Js = tuple(torch.nn.functional.pad(Jk, (0, 0, 0, d - rd)) for Jk in Js)
-            b = torch.nn.functional.pad(b, (0, d - rd))
-        return Js, b
+        return residual_and_jac(ftype, robust, xs, params, sqrt_info)
+
+    def _linearize_rows(self, ftype, fam: Tuple[int, ...], rows: List[int]):
+        """Re-linearize factor rows of a family of groups (one group, or the
+        row-block groups of factors of ftype, in block order) once, whole."""
+        grp = self._groups[fam[0]]
+        idx = self._slot_rows(grp.keys[rows], rows)
+        return self._linearize(ftype, grp.robust, idx[1:], tree_map(lambda a: a[idx[0]], grp.params),
+                               torch.cat([self._groups[h].sqrt_info[idx[0]] for h in fam], dim=1))
+
+    def _share_rows(self, fam: Tuple[int, ...], r_w, Js):
+        """Per group of the family: (group, its rows [a, z) of the whole
+        factor, (A per slot [N, d, dim_k], b [N, d])), rows padded to d."""
+        d, a = self._engine.d, 0
+        for g in fam:
+            z = a + self._groups[g].ftype.resid_dim
+            A, b = tuple(J[:, a:z] for J in Js), -r_w[:, a:z]
+            if z - a < d:
+                A = tuple(torch.nn.functional.pad(Ak, (0, 0, 0, d - (z - a))) for Ak in A)
+                b = torch.nn.functional.pad(b, (0, d - (z - a)))
+            yield g, (a, z), (A, b)
+            a = z
 
     def _retract_masked(self, relin_gids: Set[int]):
         """Values::retractMasked (Values.h:229): move the linearization point

@@ -38,6 +38,8 @@ from gtsam_petercdev_torch.inference.incremental import (
     CliqueRec, FactorGroup, HostPayload, IncrementalEngine, MsgRec, PoolArrays, PoolClass,
     _make_pool)
 from gtsam_petercdev_torch.linear.noise import RobustLoss
+from gtsam_petercdev_torch.navigation.ahrs import PreintegratedRotation
+from gtsam_petercdev_torch.navigation.preintegration import PIM
 from gtsam_petercdev_torch.nonlinear.factor_graph import FactorType, NonlinearFactorGraph
 from gtsam_petercdev_torch.nonlinear.isam2 import ISAM2, ISAM2Params, _Group, _TypeStore
 from gtsam_petercdev_torch.nonlinear.values import Values
@@ -67,7 +69,8 @@ def resolve_factor_type(name: str) -> FactorType:
 
 # --- host trees and the restricted unpickler ---------------------------------
 
-_LAYOUTS = dict(convert._LAYOUTS)  # NamedTuple layouts by name
+# NamedTuple layouts by name: the values' and the navigation factors' params
+_LAYOUTS = dict(convert._LAYOUTS, PIM=PIM, PreintegratedRotation=PreintegratedRotation)
 
 _ALLOWED = {
     ("numpy", "ndarray"), ("numpy", "dtype"),
@@ -320,6 +323,7 @@ def isam2_to_bytes(isam) -> bytes:
             "cap": g.cap, "params": _to_host(_first_rows(g.params, g.n)),
             "sqrt_info": g.sqrt_info[: g.n].cpu().numpy(), "keys": g.keys[: g.n],
             "retired": g.retired[: g.n]} for g in isam._groups],
+        "families": {g: (ft.name, fam) for g, (ft, fam) in isam._families.items()},
         "marginalized": sorted(isam._marginalized),
         "fixed_gids": sorted(isam._fixed_gids),
         "update_count": isam._update_count,
@@ -431,6 +435,9 @@ def isam2_from_bytes(data: bytes, *, device: DeviceLike = "cuda"):
         isam._groups.append(grp)
         # the engine's group key, as ISAM2._group_for builds it for new factors
         eng._group_key[(ftype, repr(robust), float(gs["sign"]))] = g
+    # a checkpoint without them re-linearizes each row block on its own
+    isam._families = {g: (resolve_factor_type(name), tuple(fam))
+                      for g, (name, fam) in ws.get("families", {}).items()}
     isam._marginalized = set(ws["marginalized"])
     isam._fixed_gids = set(ws["fixed_gids"])
     isam._update_count = ws["update_count"]

@@ -1,5 +1,6 @@
 """Synthetic graphs: Pose3 rings with the topology of the sphere benchmark,
-and a City10000-like Pose2 stream (`city_stream`).
+a City10000-like Pose2 stream (`city_stream`) and an IMU + GPS drive
+(`imu_gps_drive`).
 
 `sphere_rings(n_rings, n_per_ring)` places n_rings x n_per_ring poses on
 latitude rings of a sphere, facing along each ring. Factors:
@@ -20,7 +21,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gtsam_petercdev_torch.geometry import pose3
+from gtsam_petercdev_torch.core.keys import symbol
+from gtsam_petercdev_torch.device import DeviceLike
+from gtsam_petercdev_torch.geometry import pose3, so3
+from gtsam_petercdev_torch.linear import noise
+from gtsam_petercdev_torch.navigation import preintegration as pre
+from gtsam_petercdev_torch.navigation.factors import combined_covariance
+from gtsam_petercdev_torch.navigation.scenario import ScenarioRunner, constant_twist
 
 
 def _exp_np(xi: np.ndarray):
@@ -154,3 +161,90 @@ def city_stream(n_poses: int, seed: int = 0, side: int = 48, p_turn: float = 0.3
     gt = np.stack(gt)
     gt[:, :2] -= gt[0, :2]  # the harness starts at the origin
     return lines, gt
+
+
+# the drive's car: body yaw rate and forward speed (a circle of radius
+# 200 m at 10 m/s), its constant true IMU bias (accelerometer m/s^2,
+# gyroscope rad/s), the GPS sigma (m), the priors' sigmas on X0 (rotation
+# rad, position m), V0 (m/s) and B0, and the start's perturbation of the
+# truth (rotation rad, position m, velocity m/s; the bias starts at 0)
+DRIVE_TWIST = ((0.0, 0.0, 0.05), (10.0, 0.0, 0.0))
+DRIVE_BIAS = (0.05, -0.03, 0.04, 2e-3, -1e-3, 1.5e-3)
+DRIVE_GPS_SIGMA = 0.5
+DRIVE_PRIOR_SIGMAS = ((0.01, 0.1), 0.1, (0.1, 0.01))
+DRIVE_START_SIGMAS = (0.01, 0.5, 0.2)
+# the bias random walk (accelerometer, gyroscope sigma a sqrt-second) of the
+# KITTI sequence's IMU calibration that IMUKittiExampleGPS reads
+# (AccelerometerBiasSigma, GyroscopeBiasSigma); default_params' 1e-3
+# variances let the gyroscope bias wander 0.03 rad/s a second
+DRIVE_BIAS_WALK = (1.67e-4, 2.91e-6)
+
+
+def imu_gps_drive(n_keyframes: int, rate_hz: int = 200, seed: int = 0,
+                  device: DeviceLike = "cuda", bias_walk=DRIVE_BIAS_WALK):
+    """A synthetic drive in the shape of the reference's IMUKittiExampleGPS:
+    a `ConstantTwistScenario` car (DRIVE_TWIST), one keyframe a second, a
+    `rate_hz` IMU with `default_params` noise and a constant true bias
+    (DRIVE_BIAS), one GPS fix per keyframe (sigma DRIVE_GPS_SIGMA), priors on
+    X0, V0 and B0, and a start perturbed from the truth (X0 exact).
+
+    Each interval's `rate_hz` samples come from `ScenarioRunner.
+    measured_series` (one numpy Generator: IMU noise, GPS noise, then the
+    start's perturbation) and integrate in one batched `preintegrate` pass
+    on `device` (bias_hat 0); each CombinedImuFactor is whitened by
+    `combined_covariance`, its bias random walk the sigmas `bias_walk`
+    (accelerometer, gyroscope; None: `default_params`' own). Keys:
+    symbol("x" | "v" | "b", k).
+
+    Returns (values, factors, truth): the first two in the numpy format of
+    `utils/convert.py` (float64), truth a dict of the keyframes' R [K, 3, 3],
+    t [K, 3], v [K, 3], the true bias [6], the IMU samples ("imu": acc,
+    omega [K - 1, S, 3], dts [K - 1, S]), the GPS fixes [K, 3] and the keys."""
+    K, S = int(n_keyframes), int(rate_hz)
+    rng = np.random.default_rng(seed)
+    params = pre.default_params(device=device)
+    if bias_walk is not None:
+        I3 = torch.eye(3, dtype=params.n_gravity.dtype, device=params.n_gravity.device)
+        params = params._replace(bias_acc_cov=I3 * bias_walk[0] ** 2,
+                                 bias_omega_cov=I3 * bias_walk[1] ** 2)
+    sc = constant_twist(*DRIVE_TWIST, device=device)
+    runner = ScenarioRunner(sc, params, 1.0 / S, bias=np.asarray(DRIVE_BIAS))
+    acc, omega, dts = runner.measured_series(float(K - 1), rng)
+    acc, omega, dts = acc.reshape(K - 1, S, 3), omega.reshape(K - 1, S, 3), dts.reshape(K - 1, S)
+    pim = pre.preintegrate(params, acc, omega, dts)
+    cov = combined_covariance(pim, params)
+    pim_np = tuple(f.cpu().numpy() for f in pim)
+    imu_info = noise.gaussian_covariance(cov.cpu().numpy())
+
+    nav = sc.nav_state(torch.arange(K, dtype=torch.float64, device=params.n_gravity.device))
+    R, t, v = (a.cpu().numpy() for a in nav)
+    gps = t + rng.normal(size=(K, 3)) * DRIVE_GPS_SIGMA
+    s_rot, s_pos, s_vel = DRIVE_START_SIGMAS
+    dth = rng.normal(size=(K, 3)) * s_rot
+    dth[0] = 0.0
+    R0 = R @ so3.expmap(torch.from_numpy(dth)).numpy()
+    t0 = t + np.concatenate([np.zeros((1, 3)), rng.normal(size=(K - 1, 3)) * s_pos])
+    v0 = v + np.concatenate([np.zeros((1, 3)), rng.normal(size=(K - 1, 3)) * s_vel])
+
+    ks = np.arange(K)
+    xk, vk, bk = (np.array([symbol(c, int(k)) for k in ks], dtype=np.uint64) for c in "xvb")
+    values = {"Pose3": (xk, (R0, t0)), "Vector3": (vk, v0),
+              "ConstantBias": (bk, np.zeros((K, 6)))}
+    (p_rot, p_pos), p_vel, (p_ba, p_bg) = DRIVE_PRIOR_SIGMAS
+    imu_keys = np.stack([xk[:-1], vk[:-1], xk[1:], vk[1:], bk[:-1], bk[1:]], axis=1)
+    factors = [
+        ("PriorPose3", xk[:1, None], (R[:1], t[:1]),
+         noise.diagonal_sigmas(np.array([p_rot] * 3 + [p_pos] * 3))[None]),
+        ("PriorVector3", vk[:1, None], v[:1], noise.isotropic(3, p_vel, np.float64)[None]),
+        ("PriorConstantBias", bk[:1, None], np.zeros((1, 6)),
+         noise.diagonal_sigmas(np.array([p_ba] * 3 + [p_bg] * 3))[None]),
+        ("CombinedImuFactor", imu_keys,
+         {"pim": pim_np, "n_gravity": np.broadcast_to(params.n_gravity.cpu().numpy(), (K - 1, 3)).copy()},
+         imu_info),
+        ("GPSFactor", xk[:, None], gps,
+         np.broadcast_to(noise.isotropic(3, DRIVE_GPS_SIGMA, np.float64), (K, 3, 3)).copy()),
+    ]
+    truth = {"R": R, "t": t, "v": v, "bias": np.asarray(DRIVE_BIAS),
+             "imu": {"acc": acc.cpu().numpy(), "omega": omega.cpu().numpy(), "dts": dts.cpu().numpy()},
+             "gps": gps, "keys": {"x": xk, "v": vk, "b": bk}}
+    return values, factors, truth
