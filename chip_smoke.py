@@ -18,6 +18,7 @@
     python3 chip_smoke.py --partitioned-only  phases 1-2, the sphere's plans, then
                                           phase 11; no result line
     python3 chip_smoke.py --navigation-only  phases 1-2, then phase 12; no result line
+    python3 chip_smoke.py --init-only     phases 1-2, then phase 13; no result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -190,7 +191,46 @@ a result line:
              the final graph from the iSAM2 estimate printed, and batch LM
              from the drive's start reaching the stored optimum (rel 1e-5); d) K4 / K3 / K1 / K2 against their plain
              versions at every shape b) and c) gave them, float64 and float32
- 13. result  a `kernels` JSON line, the card line, then the last line
+ 13. init    initialization and the linear extras, float64, after phase 12:
+             a) chordal initialization (slam/initialize.py) of phase 4's
+             sphere (its between factors): ms and PCG iterations of each
+             stage, the card against the CPU (translations 1e-6 x max|t|,
+             rotation entries 1e-6), its error below the perturbed start's;
+             GN (multifrontal) from it with a Pose3 prior on pose 0, beside
+             GN from the perturbed start; b) LAGO on the whole
+             city_stream(3687) graph (3,687 poses, 5,714 between factors),
+             the card against the CPU (rel 1e-9), its ATE below dead
+             reckoning's; LM (multifrontal) from LAGO and from dead
+             reckoning: the plan line, iterations, final error, ATE,
+             launches per iteration; c) SubgraphSolver (linear/subgraph.py:
+             the tree factored once through K4 / K3 / K1, applied through
+             K2 on every PCG step) on the sphere linearized at the chordal
+             estimate: PCG iterations, ms with the tree factor and an apply
+             apart, the tree plan line, launches for a solve, the factor and
+             an apply; against the multifrontal solve (1e-8 x max|x|; PCG
+             at tol 1e-9, at most 2,000 iterations); d) the exact constrained dense LM (linear/qr.py) on
+             the stream's first 1,000 poses, pose 0 pinned by
+             nonlinear_equality: the pin at every accepted step (1e-12), the
+             card against the CPU on 200 poses (LM history rel 1e-9), ms an
+             iteration; e) the unstable factors: e1) BetweenFactorEM on every
+             loop closure of the sphere with 10% of them outliers against
+             plain factors (ATE below; the first damped step = the dense
+             oracle, 1e-8); e2) a rolling-shutter BA scene (200 keyframes,
+             10,000 points) and e3) an inverse-depth scene (200 poses, 5,000
+             landmarks; dims 6 / 5 / 1 padded to 6) through LM: plan lines,
+             launches, and on 20-keyframe cuts the dense oracle (1e-8) and
+             card = CPU (rel 1e-9); every LM of a)-e) with no bad pivot and
+             no plain version; f) a Kalman filter + RTS over 10,000
+             constant-velocity tracks x 1,000 steps (100 tracks on the CPU,
+             rel 1e-12), the EKF Pose2 localization over 250 steps (card =
+             CPU, rel 1e-12), min_eigenvalue_shifted of the sphere's H with
+             the hvp matvec (iterations, ms; card = CPU on sphere_rings(10,
+             10), rel 1e-9, eigvalsh beside it), 10^6 draws of
+             sample_sqrt_info from a full 6 x 6 sqrt-information (sample
+             covariance within 1% of sqrt(Sigma_ii Sigma_jj)); g) K4 / K3 /
+             K1 / K2 against their plain versions at every shape b), c) and
+             e) gave them, float64 and float32
+ 14. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -360,6 +400,50 @@ NAV_ISAM2_REF = "tests/data/imu_isam2_reference.json"
 NAV_ISAM2_REF_GATE = 1e-6
 NAV_ORDERING_GATE = 1e-3
 NAV_PROGRESS = 25
+
+# phase 13 (initialization and the linear extras, float64): a) chordal on the
+# phase-4 sphere, GN of at most INIT_GN_ITERS iterations from it; b) LAGO on
+# the whole city_stream(INIT_CITY_POSES) graph, LM of at most
+# INIT_CITY_LM_ITERS iterations from it and from dead reckoning; d) the
+# constrained dense LM over the stream's first INIT_DENSE_POSES poses (at
+# most INIT_DENSE_ITERS iterations), card = CPU on INIT_DENSE_CUT poses; e1)
+# INIT_OUTLIER_SHARE of the sphere's loop closures outliers, LM of at most
+# INIT_EM_ITERS; e2) the rolling-shutter scene (keyframes, points,
+# observations a point) and e3) the inverse-depth scene (poses, landmarks,
+# observations), LM of at most INIT_CAM_ITERS, the dense-oracle and card =
+# CPU gates (INIT_CAM_CUT_ITERS iterations) on INIT_CAM_CUT keyframes; c)
+# the subgraph PCG at tol INIT_SUBGRAPH_TOL and at most
+# INIT_SUBGRAPH_MAX_ITERS iterations (at its defaults, tol 1e-8 and 500
+# iterations, it stops 7.6e-6 x max|x| from the multifrontal solve; tol 1e-8
+# takes 834 iterations on an H100 and lands 5.3e-9 away, half the gate);
+# the filters' card = CPU gate on
+# INIT_KF_CPU_TRACKS of the tracks (they are independent); f)
+# INIT_KF (tracks, steps) of the Kalman filter, INIT_EKF_STEPS of the EKF
+# (1,000 took 16.1 s on the card and as long again on its host's CPU: each
+# step is two forward-mode Jacobians of a 3-vector chart, ~45 small ops),
+# the power methods' card = CPU gate on sphere_rings(INIT_EIG_CUT),
+# INIT_SAMPLES draws of the sampler
+INIT_SPHERE = (N_RINGS, N_PER_RING)
+INIT_GN_ITERS = 5
+INIT_CITY_POSES = 3687
+INIT_CITY_LM_ITERS = 30
+INIT_DENSE_POSES = 1000
+INIT_DENSE_CUT = 200
+INIT_DENSE_ITERS = 20
+INIT_OUTLIER_SHARE = 0.1
+INIT_EM_ITERS = 20
+INIT_RS = (200, 10_000, 4)
+INIT_INV_DEPTH = (200, 5_000, 4)
+INIT_CAM_ITERS = 10
+INIT_CAM_CUT = 20
+INIT_CAM_CUT_ITERS = 4
+INIT_KF = (10_000, 1_000)
+INIT_KF_CPU_TRACKS = 100
+INIT_SUBGRAPH_TOL = 1e-9
+INIT_SUBGRAPH_MAX_ITERS = 2000
+INIT_EKF_STEPS = 250
+INIT_EIG_CUT = (10, 10)
+INIT_SAMPLES = 1_000_000
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
@@ -713,37 +797,42 @@ def profile_once(torch, fn):
     return sum(e.self_device_time_total for e in k) / 1e3, sum(e.count for e in k)
 
 
-def profile_step(torch, step, values, top=12):
+def profile_step(torch, step, values, top=12, reps=2, host=True):
     """One step under torch.profiler: (device busy ms, kernel launches,
     [(kernel, ms, calls)], [(host op, self ms, calls)]), or None when the
-    profiler shows no device time."""
+    profiler shows no device time. host=False records the device alone (no
+    host ops: their events are most of a long step's post-processing)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step(values)
     torch.cuda.synchronize()
-    # twice, keeping the profile that saw more launches: the profiler can
-    # drop a share of a step's ~3,000 kernel events
-    kern, prof = [], None
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    # `reps` times, keeping the profile that saw more launches: the profiler
+    # can drop a share of a long step's kernel events
+    kern, avgs = [], None
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    for _ in range(reps):
+        with profile(activities=acts) as p:
             step(values)
             torch.cuda.synchronize()
-        k = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+        a = p.key_averages()
+        k = [e for e in a if e.device_type == DeviceType.CUDA]
         if sum(e.count for e in k) > sum(e.count for e in kern):
-            kern, prof = k, p
+            kern, avgs = k, a
     if not kern:
         return None
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in kern),
                   key=lambda r: -r[1])
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
-    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top], host[:top]
+    host_rows = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in avgs
+                        if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top], host_rows[:top]
 
 
-def time_step(torch, v1, label, unit, step, graph, values, n_chain, prof_out=None):
+def time_step(torch, v1, label, unit, step, graph, values, n_chain, prof_out=None,
+              profile_host=True):
     """Chained time of `step`, its launches per step, and its profile
-    (`prof_out`, a dict, gets its device busy ms and kernel launches)."""
+    (`prof_out`, a dict, gets its device busy ms and kernel launches; two
+    profiled steps, the fuller kept; `profile_host`: the host ops too)."""
     v1.reset_launch_counts()
     step(values)
     per_step = v1.launch_counts()
@@ -753,7 +842,7 @@ def time_step(torch, v1, label, unit, step, graph, values, n_chain, prof_out=Non
         f"{unit} {per_step}; error after {n_chain} steps {err:.6e}")
     if not err == err:
         raise AssertionError(f"{label}: steps gave a non-finite error")
-    prof = profile_step(torch, step, values)
+    prof = profile_step(torch, step, values, host=profile_host)
     if prof is None:
         log(f"{label} device time: not measured (no device events)")
         return ms, per_step
@@ -764,7 +853,8 @@ def time_step(torch, v1, label, unit, step, graph, values, n_chain, prof_out=Non
         f"top kernels by device time:")
     for key, kms, calls in rows:
         log(f"  {kms:9.3f} ms  {calls:5d}x  {key[:100]}")
-    log(f"{label} host ops by self CPU time (profiled step, {n_launch} kernel launches):")
+    if host:
+        log(f"{label} host ops by self CPU time (profiled step, {n_launch} kernel launches):")
     for key, hms, calls in host:
         log(f"  {hms:9.3f} ms  {calls:5d}x  {key[:100]}")
     return ms, per_step
@@ -2365,8 +2455,11 @@ def run_navigation(torch, v1, dev="cuda"):
     if dev == "cuda":
         t0 = time.perf_counter()
         prof = {}
+        # the iteration profiled twice (the fuller kept), its device alone:
+        # the post-processing of an iteration's ~33,000 launches took ~30 s
+        # a profile with the host ops (its host table: PERF.md, section 5)
         it_ms, per_it = time_step(torch, v1, "navigation b) LM iteration", "iter", lm_step, g, v,
-                                  NAV_CHAIN, prof_out=prof)
+                                  NAV_CHAIN, prof_out=prof, profile_host=False)
         busy = prof.get("busy_ms")
         out["b"].update(ms_per_iteration=it_ms, launches_per_step=per_it, device_busy_ms=busy,
                         device_busy_share=busy / it_ms if busy else None,
@@ -2509,6 +2602,698 @@ def run_navigation(torch, v1, dev="cuda"):
     out["phase_s"] = time.perf_counter() - t_phase
     out["seconds"] = secs
     log(f"navigation phase: {out['phase_s']:.1f} s (" + ", ".join(
+        f"{k}) {x:.1f} s" for k, x in secs.items()) + ")")
+    return out
+
+
+# --- phase 13: initialization and the linear extras ----------------------------------------
+
+
+class PcgRecorder:
+    """Each `linear/solve.pcg_solve` call's ms (the card synchronized on
+    both sides) and the operator products (`hvp`, one a CG step) made while
+    the context is open."""
+
+    def __init__(self, sync):
+        self.sync, self.stages, self.hvps = sync, [], 0
+
+    def __enter__(self):
+        from gtsam_petercdev_torch.linear import solve as linsolve
+
+        self.mod, self.saved = linsolve, (linsolve.pcg_solve, linsolve.hvp)
+        pcg_solve, hvp = self.saved
+
+        def counted_hvp(*a, **k):
+            self.hvps += 1
+            return hvp(*a, **k)
+
+        def timed_pcg_solve(*a, **k):
+            self.sync()
+            t0, n0 = time.perf_counter(), self.hvps
+            out = pcg_solve(*a, **k)
+            self.sync()
+            self.stages.append(((time.perf_counter() - t0) * 1e3, self.hvps - n0))
+            return out
+
+        linsolve.pcg_solve, linsolve.hvp = timed_pcg_solve, counted_hvp
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pcg_solve, self.mod.hvp = self.saved
+
+
+class EliminationRecorder:
+    """Every bucket shape (B, nf, ns, d) the multifrontal eliminations (solve
+    and factor) run while the context is open, and their clamped pivots (one
+    device read an elimination: for the gate runs, never a timed one)."""
+
+    def __enter__(self):
+        from gtsam_petercdev_torch.inference import elimination
+
+        self.mod, self.saved = elimination, elimination._eliminate
+        self.shapes, self.bad = set(), 0
+        orig = self.saved
+
+        def recorded(maps, dm, pool, gp):
+            self.shapes.update((bm.B, bm.nf, bm.ns, maps.plan.d) for bm in maps.buckets)
+            outs, bad = orig(maps, dm, pool, gp)
+            self.bad += int(bad)
+            return outs, bad
+
+        elimination._eliminate = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._eliminate = self.saved
+
+
+class ErrorRecorder:
+    """Every `graph.error(values)` while the context is open as (error,
+    what(values)), so each entry of an error history finds its values."""
+
+    def __init__(self, graph, what):
+        self.graph, self.what, self.evals = graph, what, []
+
+    def __enter__(self):
+        error = self.graph.error
+
+        def recorded(values):
+            e = error(values)
+            self.evals.append((float(e), self.what(values)))
+            return e
+
+        self.graph.error = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.graph.error
+
+    def at(self, history):
+        """what(values) at each history entry."""
+        out, k = [], 0
+        for h in history:
+            while self.evals[k][0] != h:
+                k += 1
+            out.append(self.evals[k][1])
+        return out
+
+
+def pose2_ate(values, gt):
+    """RMSE of the Pose2 positions (keys 0..n-1) against the truth [n, 3]."""
+    import numpy as np
+
+    keys = values.type_keys("Pose2")
+    p = values.params("Pose2").double().cpu().numpy()[np.argsort(keys)]
+    d = p[:, :2] - gt[: len(p), :2]
+    return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
+
+
+def pose3_ate(values, t_true):
+    import numpy as np
+
+    keys = values.type_keys("Pose3")
+    t = values.params("Pose3").t.double().cpu().numpy()[np.argsort(keys)]
+    d = t - t_true[: len(t)]
+    return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
+
+
+def dense_step_rel(torch, elimination, linsolve, graph, values, lam):
+    """The first damped multifrontal step against the dense oracle: max abs
+    difference over the dense step's largest entry."""
+    lg = graph.linearize(values)
+    cache = {"mf_lg": lg}
+    delta, _ = elimination.solve_linearized(graph, values, lam, cache=cache)
+    H, g = linsolve.assemble_dense(lg)
+    x_dense = linsolve.dense_solve(H, g, lam)
+    x_mf = linsolve.flatten_delta(lg, delta)
+    return ((x_mf - x_dense).abs().max() / x_dense.abs().max()).item(), int(cache["bad_pivots"])
+
+
+def plan_line(elimination, symbolic, graph, values, label):
+    """A graph's optimizer plan (best_ordering's four candidates, cliques,
+    levels, buckets, routing), set on the graph and logged; returns (maps,
+    facts)."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.core import manifold
+
+    structure = elimination.graph_structure(graph, values)
+    lg0 = graph.linearize(values)
+    t0 = time.perf_counter()
+    edges = np.concatenate([np.stack([s.gids[a], s.gids[b]], axis=1) for s in structure
+                            for a in range(len(s.gids)) for b in range(a + 1, len(s.gids))])
+    cands = symbolic.ordering_candidates(len(values), edges)
+    best = min(cands, key=lambda c: c[2])
+    # the optimizer's plan on best_ordering's choice, its candidates made once
+    dims = {t: manifold.get(t).dim for t in lg0.type_counts}
+    d = max(dims.values())
+    offs = elimination.type_offsets(lg0.type_counts)
+    var_dims = np.full(len(values), d, dtype=np.int64)
+    for t, k in lg0.type_counts.items():
+        var_dims[offs[t]: offs[t] + k] = dims[t]
+    plan = elimination.build_plan_for_graph(structure, len(values), d, ordering=best[1])
+    maps = elimination.build_numeric_maps(plan, structure, var_dims=var_dims)
+    elimination.set_graph_plan(graph, lg0, plan, maps)
+    plan_s = time.perf_counter() - t0
+    F = {name: d * d * (f - 1) + 1 for name, _, f in cands}
+    facts = dict(plan_facts(elimination, maps), ordering=best[0], F_size=F, d=d, plan_s=plan_s)
+    log(f"{label} plan ({plan_s:.1f} s, d = {d}): ordering {best[0]} (F_size "
+        + ", ".join(f"{k} {x}" for k, x in F.items()) + f"), {facts['cliques']} cliques, "
+        f"{facts['levels']} levels, {facts['buckets']} buckets, routing {facts['routes']}")
+    return maps, facts
+
+
+def city_edges(lines):
+    """(keys [E, 2], measured [E, 3]) of city stream lines."""
+    import numpy as np
+
+    rows = [ln.split() for ln in lines]
+    return (np.array([[int(r[1]), int(r[3])] for r in rows]),
+            np.array([[float(x) for x in r[6:9]] for r in rows]))
+
+
+def dead_reckoning(synthetic, keys, meas, n):
+    """Poses 0..n-1 composed from the odometry lines, pose 0 at the origin."""
+    import numpy as np
+
+    odo = {int(a): m for (a, b), m in zip(keys, meas) if b == a + 1}
+    poses = [np.zeros(3)]
+    for i in range(1, n):
+        poses.append(synthetic.pose2_compose_np(poses[-1], odo[i - 1]))
+    return np.stack(poses)
+
+
+def run_init(torch, v1, here, dev="cuda"):
+    """Phase 13 (float64 unless stated): a) chordal initialization of the
+    sphere, then GN from it; b) LAGO on the whole City graph, then LM from it
+    and from dead reckoning; c) the subgraph-preconditioned solve; d) the
+    exact constrained dense LM; e) the unstable factors (EM on the sphere
+    with outliers, rolling-shutter BA, inverse-depth SLAM); f) the Kalman
+    filter / RTS smoother, the EKF, the power methods, the sampler; g) the
+    four kernels at every bucket shape b), c) and e) gave them."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.inference import elimination, kernels, symbolic
+    from gtsam_petercdev_torch.linear import kalman, noise, sampler, spectral
+    from gtsam_petercdev_torch.linear import solve as linsolve
+    from gtsam_petercdev_torch.linear.subgraph import SubgraphSolver
+    from gtsam_petercdev_torch.nonlinear import ekf
+    from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
+    from gtsam_petercdev_torch.nonlinear.optimizers import (
+        LMParams, OptimizerParams, gauss_newton, levenberg_marquardt)
+    from gtsam_petercdev_torch.geometry import pose2
+    from gtsam_petercdev_torch.ops import cholesky_v2 as v2
+    from gtsam_petercdev_torch.slam import initialize
+    from gtsam_petercdev_torch.slam.factors import nonlinear_equality
+    from gtsam_petercdev_torch.utils import convert, synthetic
+
+    out, secs, launches = {}, {}, {k: 0 for k in KERNELS}
+    shapes = set()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = t_sub = time.perf_counter()
+
+    def count_launches():
+        for k, x in v1.launch_counts().items():
+            launches[k] += x
+
+    def lap(key):
+        nonlocal t_sub
+        secs[key] = time.perf_counter() - t_sub
+        t_sub = time.perf_counter()
+
+    # a) chordal initialization of the sphere (its between factors), CPU beside
+    n_rings, n_per = INIT_SPHERE
+    va, fa = synthetic.sphere_rings(n_rings, n_per, seed=SEED)
+    g_btw = convert.graph_from_arrays(fa[1:], device=dev)
+    v_start = convert.values_from_arrays(va, device=dev)
+    sync()
+    with PcgRecorder(sync) as rec:
+        t0 = time.perf_counter()
+        chordal = initialize.initialize_pose3_chordal(g_btw)
+        sync()
+        chordal_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with PcgRecorder(lambda: None) as rec_cpu:
+        chordal_cpu = initialize.initialize_pose3_chordal(
+            convert.graph_from_arrays(fa[1:], device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    pc, pcc = chordal.params("Pose3"), chordal_cpu.params("Pose3")
+    t_gap = ((pc.t.cpu() - pcc.t).abs().max() / pcc.t.abs().max()).item()
+    r_gap = (pc.R.cpu() - pcc.R).abs().max().item()
+    e_chordal, e_start = float(g_btw.error(chordal)), float(g_btw.error(v_start))
+    out["a"] = dict(poses=n_rings * n_per, factors=len(fa[1][1]), ms=chordal_ms,
+                    stages=[dict(ms=ms, pcg_iterations=it) for ms, it in rec.stages],
+                    cpu_stages_iterations=[it for _, it in rec_cpu.stages], cpu_s=cpu_s,
+                    t_rel=t_gap, R_abs=r_gap, error_chordal=e_chordal, error_start=e_start)
+    log(f"init a) chordal on sphere_rings({n_rings}, {n_per}): {chordal_ms:.3f} ms in all; "
+        + "; ".join(f"stage {i + 1} {ms:.3f} ms, {it} PCG iterations"
+                    for i, (ms, it) in enumerate(rec.stages))
+        + f" (CPU {cpu_s:.1f} s, iterations {[it for _, it in rec_cpu.stages]}); card against "
+        f"the CPU: translations {t_gap:.3e} x max|t| (gate 1e-6), rotation entries {r_gap:.3e} "
+        f"(gate 1e-6); between factors' error {e_chordal:.6e} at the chordal estimate, "
+        f"{e_start:.6e} at the sphere's perturbed start")
+    if not (t_gap <= 1e-6 and r_gap <= 1e-6 and e_chordal < e_start):
+        raise AssertionError("init a): the chordal estimate failed its gates")
+    del chordal_cpu
+
+    # GN from the chordal estimate (a Pose3 prior on pose 0 at it), beside GN
+    # from the perturbed start on the sphere's own graph
+    p0 = chordal.at(0)
+    g_init = convert.graph_from_arrays(
+        [("PriorPose3", np.zeros((1, 1), dtype=np.int64),
+          (p0.R[None].cpu().numpy(), p0.t[None].cpu().numpy()),
+          noise.isotropic(6, 0.1, np.float64)[None])] + fa[1:], device=dev)
+    g_full = convert.graph_from_arrays(fa, device=dev)
+    # one structure (the sphere's: the prior's batch, then the betweens'): one plan
+    lg_full = g_full.linearize(v_start)
+    elimination.set_graph_plan(g_init, lg_full, *elimination._graph_plan(g_full, lg_full))
+    del lg_full
+    gn_p = OptimizerParams(solver="multifrontal", max_iterations=INIT_GN_ITERS)
+    v1.reset_launch_counts()
+    with counting_plain() as plain_a, EliminationRecorder() as er_a:
+        gn_init = gauss_newton(g_init, chordal, gn_p, device=dev)
+        gn_start = gauss_newton(g_full, v_start, gn_p, device=dev)
+    sync()
+    count_launches()
+    out["a"].update(gn_chordal=dict(iterations=gn_init.iterations, history=gn_init.error_history),
+                    gn_start=dict(iterations=gn_start.iterations, history=gn_start.error_history),
+                    bad_pivots=er_a.bad, plain_calls=dict(plain_a))
+    log(f"init a) GN from the chordal estimate: {gn_init.error_history[0]:.6e} -> "
+        f"{gn_init.error:.6e} in {gn_init.iterations} iterations; GN from the perturbed start "
+        f"(the sphere's prior): {gn_start.error_history[0]:.6e} -> {gn_start.error:.6e} in "
+        f"{gn_start.iterations}; bad pivots {er_a.bad}; plain versions {dict(plain_a)}")
+    check_result(gn_init, "init a) GN from chordal")
+    if er_a.bad or (dev == "cuda" and plain_a):
+        raise AssertionError("init a): bad pivots or a plain version on the card")
+    lap("a")
+
+    # b) LAGO on the whole City graph, then LM from it and from dead reckoning
+    lines, gt = synthetic.city_stream(INIT_CITY_POSES, seed=SEED)
+    path = write_stream(here, lines, len(lines))
+    keys, meas = city_edges(lines)
+    n_loop = int(np.sum(keys[:, 1] != keys[:, 0] + 1))
+    g_city = city_graph(torch, path, range(len(lines)), dev)
+    t0 = time.perf_counter()
+    lago = initialize.initialize_pose2_lago(g_city)
+    sync()
+    lago_ms = (time.perf_counter() - t0) * 1e3
+    lago_cpu = initialize.initialize_pose2_lago(city_graph(torch, path, range(len(lines)), "cpu"))
+    a_, b_ = lago.params("Pose2").cpu(), lago_cpu.params("Pose2")
+    lago_rel = ((a_ - b_).abs().max() / b_.abs().max()).item()
+    dr = pose_values(torch, range(INIT_CITY_POSES),
+                     dead_reckoning(synthetic, keys, meas, INIT_CITY_POSES), dev)
+    e_lago, e_dr = float(g_city.error(lago)), float(g_city.error(dr))
+    maps_b, facts_b = plan_line(elimination, symbolic, g_city, lago, "init b) City")
+    out["b"] = dict(poses=INIT_CITY_POSES, factors=len(lines), loop_closures=n_loop,
+                    lago_ms=lago_ms, lago_rel_cpu=lago_rel, error_lago=e_lago,
+                    error_dead_reckoning=e_dr, ate_lago=pose2_ate(lago, gt),
+                    ate_dead_reckoning=pose2_ate(dr, gt), plan=facts_b)
+    log(f"init b) City: {INIT_CITY_POSES} poses, {len(lines)} between factors ({n_loop} loop "
+        f"closures); LAGO {lago_ms:.3f} ms, card against the CPU rel {lago_rel:.3e} (gate "
+        f"1e-9); error at LAGO {e_lago:.6e} (ATE {out['b']['ate_lago']:.6f} m), at dead "
+        f"reckoning {e_dr:.6e} (ATE {out['b']['ate_dead_reckoning']:.6f} m; gate: LAGO's ATE "
+        f"below; LAGO weighs every edge alike, the graph's loop closures sigma 10)")
+    if not (lago_rel <= 1e-9 and out["b"]["ate_lago"] < out["b"]["ate_dead_reckoning"]):
+        raise AssertionError("init b): LAGO failed its gates")
+    lm_p = LMParams(solver="multifrontal", max_iterations=INIT_CITY_LM_ITERS)
+    for name, start in (("lago", lago), ("dead_reckoning", dr)):
+        v1.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counting_plain() as plain_b, EliminationRecorder() as er_b:
+            res = levenberg_marquardt(g_city, start, lm_p, device=dev)
+            sync()
+        lm_s = time.perf_counter() - t0
+        lc = v1.launch_counts()
+        count_launches()
+        shapes |= er_b.shapes
+        check_result(res, f"init b) LM from {name}")
+        per_it = {k: x / max(1, res.iterations) for k, x in lc.items()}
+        out["b"]["lm_" + name] = dict(iterations=res.iterations, error=res.error,
+                                      history=res.error_history, s=lm_s,
+                                      ate=pose2_ate(res.values, gt), launches=lc,
+                                      launches_per_iteration=per_it, bad_pivots=er_b.bad,
+                                      plain_calls=dict(plain_b))
+        log(f"init b) LM from {name}: {res.error_history[0]:.6e} -> {res.error:.6e} in "
+            f"{res.iterations} iterations ({lm_s:.2f} s, {1e3 * lm_s / max(1, res.iterations):.1f}"
+            f" ms an iteration), ATE {out['b']['lm_' + name]['ate']:.6f} m; launches {lc} ("
+            + ", ".join(f"{k} {x:.1f}" for k, x in per_it.items()) + " an iteration); bad "
+            f"pivots {er_b.bad}; plain versions {dict(plain_b)}")
+        if er_b.bad or (dev == "cuda" and plain_b):
+            raise AssertionError(f"init b): bad pivots or a plain version on the card ({name})")
+    del g_city, lago, lago_cpu, dr
+    lap("b")
+
+    # c) the subgraph-preconditioned solve of the sphere linearized at the
+    # chordal estimate (with its prior: one variable type)
+    lam = 1e-6
+    lg = g_init.linearize(chordal)
+    t0 = time.perf_counter()
+    sol = SubgraphSolver(lg)
+    setup_s = time.perf_counter() - t0
+    tree_facts = plan_facts(elimination, sol.maps)
+    log(f"init c) subgraph: tree of {int(sum(m.sum() for m in sol.masks))} factors "
+        f"(set-up {setup_s:.1f} s): {tree_facts['cliques']} cliques, {tree_facts['levels']} "
+        f"levels, {tree_facts['buckets']} buckets, routing {tree_facts['routes']}")
+    with counting_plain() as plain_c, EliminationRecorder() as er_c:
+        v1.reset_launch_counts()
+        chol = sol.factor(lam)
+        sync()
+        factor_launches = v1.launch_counts()
+        r = linsolve.gradient(lg)["Pose3"]
+        v1.reset_launch_counts()
+        elimination.multifrontal_apply(sol.maps, chol, r)
+        sync()
+        apply_launches = v1.launch_counts()
+        v1.reset_launch_counts()
+        with PcgRecorder(sync) as rec_c:
+            t0 = time.perf_counter()
+            x_sub = sol.solve(lam, tol=INIT_SUBGRAPH_TOL, max_iters=INIT_SUBGRAPH_MAX_ITERS)
+            sync()
+            solve_ms = (time.perf_counter() - t0) * 1e3
+        solve_launches = v1.launch_counts()
+        count_launches()
+    shapes |= er_c.shapes
+
+    def med_ms(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[reps // 2]
+
+    factor_ms = med_ms(lambda: sol.factor(lam))
+    apply_ms = med_ms(lambda: elimination.multifrontal_apply(sol.maps, chol, r))
+    _, maps_sph = elimination._graph_plan(g_init, lg)
+    x_mf = elimination.multifrontal_solve(maps_sph, tuple((lb.A, lb.b) for lb in lg.batches), lam)
+    mf_ms = med_ms(lambda: elimination.multifrontal_solve(
+        maps_sph, tuple((lb.A, lb.b) for lb in lg.batches), lam))
+    sub_gap = ((x_sub["Pose3"] - x_mf).abs().max() / x_mf.abs().max()).item()
+    out["c"] = dict(lam=lam, pcg_iterations=rec_c.hvps, tol=INIT_SUBGRAPH_TOL,
+                    max_iters=INIT_SUBGRAPH_MAX_ITERS,
+                    solve_ms=solve_ms, factor_ms=factor_ms,
+                    apply_ms=apply_ms, multifrontal_ms=mf_ms, rel_multifrontal=sub_gap,
+                    tree_plan=tree_facts, setup_s=setup_s, launches_solve=solve_launches,
+                    launches_factor=factor_launches, launches_apply=apply_launches,
+                    bad_pivots=er_c.bad, plain_calls=dict(plain_c))
+    log(f"init c) SubgraphSolver.solve(lam={lam:g}, tol {INIT_SUBGRAPH_TOL:g}, max_iters "
+        f"{INIT_SUBGRAPH_MAX_ITERS}): {rec_c.hvps} PCG iterations, {solve_ms:.3f} ms (the tree "
+        f"factor {factor_ms:.3f} ms, an apply {apply_ms:.3f} ms, median of 5; the multifrontal "
+        f"solve {mf_ms:.3f} ms); against the multifrontal solve {sub_gap:.3e} x max|x| (gate "
+        f"1e-8); launches a solve {solve_launches}, the factor {factor_launches}, "
+        f"an apply {apply_launches}; bad pivots {er_c.bad}; plain versions {dict(plain_c)}")
+    if not (sub_gap <= 1e-8 and er_c.bad == 0 and not (dev == "cuda" and plain_c)):
+        raise AssertionError("init c): the subgraph solve failed its gates")
+    del sol, chol, lg, x_mf
+    lap("c")
+
+    # d) the exact constrained dense LM: the first INIT_DENSE_POSES poses of
+    # the City stream, pose 0 pinned by nonlinear_equality
+    def pinned_city(n, device):
+        ft, sq, mask = nonlinear_equality("Pose2")
+        g = NonlinearFactorGraph(device=device)
+        g.add(ft, [0], np.zeros(3), sq, constrained_mask=mask)
+        for (a, b), m in zip(keys, meas):
+            if a < n and b < n:
+                add_city_factor(g, int(a), int(b), (m,))
+        return g, pose_values(torch, range(n), dead_reckoning(synthetic, keys, meas, n), device)
+
+    g_d, v_d = pinned_city(INIT_DENSE_POSES, dev)
+    pin = lambda v: v.at(0).double().cpu().numpy()
+    dense_p = LMParams(solver="dense", max_iterations=INIT_DENSE_ITERS)
+    t0 = time.perf_counter()
+    with ErrorRecorder(g_d, pin) as er_d:
+        res_d = levenberg_marquardt(g_d, v_d, dense_p, device=dev)
+        sync()
+    dense_s = time.perf_counter() - t0
+    pin_gap = max(np.abs(p).max() for p in er_d.at(res_d.error_history))
+    check_result(res_d, "init d) constrained LM")
+    hist = {}
+    for d_ in dict.fromkeys((dev, "cpu")):
+        hist[d_] = levenberg_marquardt(*pinned_city(INIT_DENSE_CUT, d_), dense_p,
+                                       device=d_).error_history
+    d_rel = max(abs(a - b) / abs(b) for a, b in zip(hist[dev], hist["cpu"]))
+    out["d"] = dict(poses=INIT_DENSE_POSES, iterations=res_d.iterations,
+                    history=res_d.error_history, s=dense_s,
+                    ms_per_iteration=1e3 * dense_s / max(1, res_d.iterations), pin_abs=pin_gap,
+                    cut_poses=INIT_DENSE_CUT, cut_history=hist[dev], cut_rel=d_rel,
+                    ate=pose2_ate(res_d.values, gt))
+    log(f"init d) constrained dense LM, {INIT_DENSE_POSES} poses, pose 0 pinned by "
+        f"nonlinear_equality: {res_d.error_history[0]:.6e} -> {res_d.error:.6e} in "
+        f"{res_d.iterations} iterations ({out['d']['ms_per_iteration']:.1f} ms an iteration); "
+        f"pose 0 at every accepted step within {pin_gap:.3e} of its pin (gate 1e-12); "
+        f"{INIT_DENSE_CUT} poses on {dev} against the CPU: rel {d_rel:.3e} (gate 1e-9)")
+    if not (pin_gap <= 1e-12 and len(hist[dev]) == len(hist["cpu"]) and d_rel <= 1e-9):
+        raise AssertionError("init d): the constrained LM failed its gates")
+    del g_d, v_d, res_d
+    lap("d")
+
+    # e1) BetweenFactorEM on the sphere with outliers, beside plain factors
+    va_o, plain_fa, em_fa, truth_o, outliers = synthetic.sphere_rings_outliers(
+        n_rings, n_per, seed=SEED, share=INIT_OUTLIER_SHARE)
+    v_o = convert.values_from_arrays(va_o, device=dev)
+    em_p = LMParams(solver="multifrontal", max_iterations=INIT_EM_ITERS)
+    e_res = {}
+    for name, fa_ in (("em", em_fa), ("plain", plain_fa)):
+        g_ = convert.graph_from_arrays(fa_, device=dev)
+        if name == "em":
+            step_rel, bad0 = dense_step_rel(torch, elimination, linsolve, g_, v_o,
+                                            LMParams().lambda_initial)
+            lg_em = g_.linearize(v_o)
+            em_plan = elimination._graph_plan(g_, lg_em)
+        else:  # one structure (prior, odometry, loop closures): the EM graph's plan
+            elimination.set_graph_plan(g_, lg_em, *em_plan)
+        v1.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counting_plain() as plain_e, EliminationRecorder() as er_e:
+            res = levenberg_marquardt(g_, v_o, em_p, device=dev)
+            sync()
+        count_launches()
+        shapes |= er_e.shapes
+        check_result(res, f"init e1) LM {name}")
+        e_res[name] = dict(iterations=res.iterations, history=res.error_history,
+                           s=time.perf_counter() - t0, ate=pose3_ate(res.values, truth_o[1]),
+                           bad_pivots=er_e.bad, plain_calls=dict(plain_e))
+        if er_e.bad or (dev == "cuda" and plain_e):
+            raise AssertionError(f"init e1): bad pivots or a plain version ({name})")
+    out["e1"] = dict(outliers=len(outliers), step_rel=step_rel, step_bad_pivots=bad0,
+                     ate_start=pose3_ate(v_o, truth_o[1]), **e_res)
+    log(f"init e1) {len(outliers)} of {len(em_fa[2][1])} loop closures outliers; LM with "
+        f"BetweenFactorEMPose3: {e_res['em']['history'][0]:.6e} -> {e_res['em']['history'][-1]:.6e}"
+        f" in {e_res['em']['iterations']} iterations ({e_res['em']['s']:.1f} s), ATE "
+        f"{e_res['em']['ate']:.6f} m; with plain between factors: ATE {e_res['plain']['ate']:.6f} m "
+        f"in {e_res['plain']['iterations']} iterations (start {out['e1']['ate_start']:.6f} m); "
+        f"first damped step against the dense oracle {step_rel:.3e} x its largest entry (gate "
+        f"1e-8), bad pivots {bad0}")
+    if not (e_res["em"]["ate"] < e_res["plain"]["ate"] and step_rel <= 1e-8 and bad0 == 0):
+        raise AssertionError("init e1): EM failed its gates")
+    del v_o, lg_em, em_plan
+    lap("e1")
+
+    # e2) rolling-shutter BA, e3) inverse-depth SLAM: the scene, then its cut
+    for key, make, full, label in (
+            ("e2", synthetic.rolling_shutter_scene, INIT_RS, "rolling-shutter BA"),
+            ("e3", synthetic.inv_depth_scene, INIT_INV_DEPTH, "inverse-depth SLAM")):
+        va_s, fa_s, truth_s = make(*full, seed=SEED)
+        g_s = convert.graph_from_arrays(fa_s, device=dev)
+        v_s = convert.values_from_arrays(va_s, device=dev)
+        maps_s, facts_s = plan_line(elimination, symbolic, g_s, v_s, f"init {key}) {label}")
+        v1.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counting_plain() as plain_s, EliminationRecorder() as er_s:
+            res = levenberg_marquardt(g_s, v_s, LMParams(solver="multifrontal",
+                                                         max_iterations=INIT_CAM_ITERS),
+                                      device=dev)
+            sync()
+        lm_s = time.perf_counter() - t0
+        lc = v1.launch_counts()
+        count_launches()
+        shapes |= er_s.shapes
+        check_result(res, f"init {key}) LM")
+        cut_n = (INIT_CAM_CUT, full[1] * INIT_CAM_CUT // full[0], full[2])
+        va_c, fa_c, _ = make(*cut_n, seed=SEED)
+        step_rel, bad0 = dense_step_rel(torch, elimination, linsolve,
+                                        convert.graph_from_arrays(fa_c, device=dev),
+                                        convert.values_from_arrays(va_c, device=dev),
+                                        LMParams().lambda_initial)
+        hist = {}
+        for d_ in dict.fromkeys((dev, "cpu")):
+            hist[d_] = levenberg_marquardt(
+                convert.graph_from_arrays(fa_c, device=d_), convert.values_from_arrays(va_c, device=d_),
+                LMParams(solver="multifrontal", max_iterations=INIT_CAM_CUT_ITERS),
+                device=d_).error_history
+        c_rel = max(abs(a - b) / abs(b) for a, b in zip(hist[dev], hist["cpu"]))
+        per_it = {k: x / max(1, res.iterations) for k, x in lc.items()}
+        out[key] = dict(shape=full, variables=len(v_s), factors={n: len(k) for n, k, _, _ in fa_s},
+                        plan=facts_s, iterations=res.iterations, history=res.error_history,
+                        s=lm_s, ms_per_iteration=1e3 * lm_s / max(1, res.iterations),
+                        launches=lc, launches_per_iteration=per_it, bad_pivots=er_s.bad,
+                        plain_calls=dict(plain_s), cut=cut_n, step_rel=step_rel,
+                        step_bad_pivots=bad0, cut_history=hist[dev], cut_rel=c_rel)
+        log(f"init {key}) {label} {full}: LM {res.error_history[0]:.6e} -> {res.error:.6e} in "
+            f"{res.iterations} iterations ({lm_s:.2f} s); launches {lc} ("
+            + ", ".join(f"{k} {x:.1f}" for k, x in per_it.items()) + " an iteration); bad pivots "
+            f"{er_s.bad}; plain versions {dict(plain_s)}; the cut {cut_n}: first damped step "
+            f"against the dense oracle {step_rel:.3e} x its largest entry (gate 1e-8, bad pivots "
+            f"{bad0}), LM on {dev} against the CPU rel {c_rel:.3e} (gate 1e-9)")
+        if not (er_s.bad == 0 and not (dev == "cuda" and plain_s) and step_rel <= 1e-8
+                and bad0 == 0 and len(hist[dev]) == len(hist["cpu"]) and c_rel <= 1e-9):
+            raise AssertionError(f"init {key}): {label} failed its gates")
+        del g_s, v_s, res
+        lap(key)
+
+    # f) Kalman filter + RTS over a bank of constant-velocity tracks
+    T, B = INIT_KF[1], INIT_KF[0]
+    rng = np.random.default_rng(SEED)
+    F = np.eye(4)
+    F[0, 2] = F[1, 3] = 0.1
+    Qn, Hm, Rn = np.diag([1e-4, 1e-4, 1e-2, 1e-2]), np.eye(2, 4), 0.05 * np.eye(2)
+    z = rng.normal(size=(T, B, 2)) * 0.2 + np.cumsum(rng.normal(size=(T, B, 2)) * 0.1, axis=0)
+
+    def kf_bank(device, tracks=slice(None)):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64).to(device)
+        Ft, Qt, Ht, Rt, zt = t(F), t(Qn), t(Hm), t(Rn), t(z[:, tracks])
+        n = zt.shape[1]
+        s = kalman.init(torch.zeros((n, 4), dtype=torch.float64, device=device),
+                        torch.eye(4, dtype=torch.float64, device=device).expand(n, 4, 4))
+        mf, Pf, mp, Pp = [], [], [], []
+        for k in range(T):
+            sp = kalman.predict(s, Ft, Q=Qt)
+            s = kalman.update(sp, Ht, zt[k], Rt)
+            mp.append(sp.mean), Pp.append(sp.cov), mf.append(s.mean), Pf.append(s.cov)
+        filt = kalman.GaussianState(torch.stack(mf), torch.stack(Pf))
+        pred = kalman.GaussianState(torch.stack(mp), torch.stack(Pp))
+        return kalman.smooth_rts(filt, pred, Ft.expand(T, 4, 4))
+
+    kf_bank(dev)
+    sync()
+    t0 = time.perf_counter()
+    sm = kf_bank(dev)
+    sync()
+    kf_ms = (time.perf_counter() - t0) * 1e3
+    # the tracks are independent: the CPU filters a spread of them alone
+    pick = np.linspace(0, B - 1, INIT_KF_CPU_TRACKS).round().astype(np.int64)
+    t0 = time.perf_counter()
+    sm_cpu = kf_bank("cpu", pick)
+    kf_cpu_s = time.perf_counter() - t0
+    kf_rel = max(((a[:, pick].cpu() - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(sm, sm_cpu))
+    del sm, sm_cpu
+
+    def ekf_run(device):
+        rng_e = np.random.default_rng(1)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64).to(device)
+        x, odo = t([0.0, 0.0, 0.0]), t([1.0, 0.0, 0.1])
+        belief = ekf.ManifoldBelief(x, t(0.01 * np.eye(3)))
+        Q, R = t(0.001 * np.eye(3)), t(0.01 * np.eye(2))
+        zs = t(rng_e.normal(size=(INIT_EKF_STEPS, 2)) * 0.01)
+        for k in range(INIT_EKF_STEPS):
+            x = pose2.compose(x, odo)
+            belief = ekf.predict(belief, "Pose2", lambda p: pose2.compose(p, odo), Q)
+            belief = ekf.update(belief, "Pose2", lambda p: p[:2], x[:2] + zs[k], R)
+        return belief
+
+    t0 = time.perf_counter()
+    bel = ekf_run(dev)
+    sync()
+    ekf_ms = (time.perf_counter() - t0) * 1e3
+    bel_cpu = ekf_run("cpu")
+    ekf_rel = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                  for a, b in ((bel.value, bel_cpu.value), (bel.cov, bel_cpu.cov)))
+    log(f"init f) Kalman filter + RTS, {B} constant-velocity tracks x {T} steps batched over "
+        f"the tracks: {kf_ms:.1f} ms; {len(pick)} of the tracks on the CPU ({kf_cpu_s:.1f} s) "
+        f"against the card's rel "
+        f"{kf_rel:.3e} (gate 1e-12); EKF Pose2 localization over {INIT_EKF_STEPS} steps: "
+        f"{ekf_ms:.1f} ms, card against the CPU rel {ekf_rel:.3e} (gate 1e-12)")
+    if not (kf_rel <= 1e-12 and ekf_rel <= 1e-12):
+        raise AssertionError("init f): the filters differ between the card and the CPU")
+
+    # the power methods over the sphere's H (matrix-free: linear/solve.hvp)
+    def hvp_matvec(lg_):
+        return lambda x: linsolve.flatten_delta(lg_, linsolve.hvp(lg_, linsolve.unflatten_delta(lg_, x)))
+
+    lg_s = g_full.linearize(v_start)
+    D = linsolve.offsets(lg_s)[1]
+    v0 = torch.ones(D, dtype=torch.float64, device=g_full.device)
+    sync()
+    t0 = time.perf_counter()
+    eig = spectral.min_eigenvalue_shifted(hvp_matvec(lg_s), D, v0)
+    sync()
+    eig_ms = (time.perf_counter() - t0) * 1e3
+    del lg_s
+    va_e, fa_e = synthetic.sphere_rings(*INIT_EIG_CUT, seed=SEED)
+    eig_cut = {}
+    for d_ in dict.fromkeys((dev, "cpu")):
+        lg_e = convert.graph_from_arrays(fa_e, device=d_).linearize(
+            convert.values_from_arrays(va_e, device=d_))
+        De = linsolve.offsets(lg_e)[1]
+        eig_cut[d_] = spectral.min_eigenvalue_shifted(
+            hvp_matvec(lg_e), De, torch.ones(De, dtype=torch.float64, device=lg_e.batches[0].b.device))
+        if d_ == "cpu":
+            ev = torch.linalg.eigvalsh(linsolve.assemble_dense(lg_e)[0])
+    ec, ep = float(eig_cut[dev].eigenvalue), float(eig_cut["cpu"].eigenvalue)
+    eig_rel = abs(ec - ep) / abs(ep)
+    eig_true = float(ev[0])
+    log(f"init f) min_eigenvalue_shifted of the sphere's H ({D} x {D}, hvp matvec): "
+        f"{float(eig.eigenvalue):.9e} after {eig.iterations} iterations (converged "
+        f"{eig.converged}), {eig_ms:.1f} ms; on sphere_rings{INIT_EIG_CUT}: card {ec:.9e}, CPU "
+        f"{ep:.9e} ({eig_cut[dev].iterations} / {eig_cut['cpu'].iterations} iterations): rel "
+        f"{eig_rel:.3e} (gate 1e-9); eigvalsh of the dense H: min {eig_true:.9e}, max "
+        f"{float(ev[-1]):.9e} (the JAX package's estimated beta leaves the accelerated method "
+        f"unconverged: rel {abs(ec - eig_true) / eig_true:.3e} from eigvalsh, reported)")
+    if not (eig_rel <= 1e-9 and eig_cut[dev].iterations == eig_cut["cpu"].iterations):
+        raise AssertionError("init f): the power methods differ between the card and the CPU")
+
+    # the sampler: 10^6 draws from a full 6 x 6 Pose3 sqrt-information
+    rng_s = np.random.default_rng(SEED)
+    Lc = np.tril(rng_s.normal(size=(6, 6)) * 0.3) + np.diag([0.01] * 3 + [0.05] * 3)
+    Sigma = Lc @ Lc.T
+    Rs = np.linalg.cholesky(np.linalg.inv(Sigma)).T
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    Rt = torch.as_tensor(Rs, dtype=torch.float64).to(dev)
+    sync()
+    t0 = time.perf_counter()
+    eps = sampler.sample_sqrt_info(gen, Rt, shape=(INIT_SAMPLES,))
+    sync()
+    samp_ms = (time.perf_counter() - t0) * 1e3
+    cov = torch.cov(eps.T).cpu().numpy()
+    scale = np.sqrt(np.outer(np.diag(Sigma), np.diag(Sigma)))
+    samp_gap = float(np.max(np.abs(cov - Sigma) / scale))
+    del eps
+    out["f"] = dict(kf_tracks=B, kf_steps=T, kf_ms=kf_ms, kf_cpu_s=kf_cpu_s, kf_rel=kf_rel,
+                    ekf_steps=INIT_EKF_STEPS, ekf_ms=ekf_ms, ekf_rel=ekf_rel,
+                    eig=dict(value=float(eig.eigenvalue), iterations=eig.iterations,
+                             converged=eig.converged, ms=eig_ms),
+                    eig_cut=dict(card=ec, cpu=ep, rel=eig_rel, eigvalsh_min=eig_true,
+                                 eigvalsh_max=float(ev[-1])),
+                    samples=INIT_SAMPLES, sample_ms=samp_ms, sample_cov_gap=samp_gap)
+    log(f"init f) sample_sqrt_info: {INIT_SAMPLES} draws in {samp_ms:.1f} ms; sample covariance "
+        f"against Sigma: largest |difference| / sqrt(Sigma_ii Sigma_jj) {samp_gap:.3e} (gate 1e-2)")
+    if not samp_gap <= 1e-2:
+        raise AssertionError("init f): the sampler's covariance is off")
+    lap("f")
+
+    # g) the four kernels at every bucket shape of b), c) and e)
+    cases = sorted(shapes)
+    errs = {}
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        check_kernels(torch, (v2, v1, kernels), cases, {"float64": {}, "float32": {}},
+                      extras=False, errs_out=errs)
+    out["g"] = dict(distinct=len(cases), shapes=cases, max_abs_err=errs)
+    log(f"init g) {len(cases)} distinct (B, nf, ns, d) shapes of b), c) and e), each kernel "
+        f"against its plain version in float64 and float32: max abs err {errs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    lap("g")
+    out["launches"] = launches
+    log(f"init launches (counters reset before each run of a)-e), read after): {launches}")
+    if dev == "cuda" and not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"init: a kernel was never launched on the init path: {launches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"init phase: {out['phase_s']:.1f} s (" + ", ".join(
         f"{k}) {x:.1f} s" for k, x in secs.items()) + ")")
     return out
 
@@ -2902,6 +3687,7 @@ def main():
     family_only = "--isam2-family-only" in sys.argv[1:]
     partitioned_only = "--partitioned-only" in sys.argv[1:]
     navigation_only = "--navigation-only" in sys.argv[1:]
+    init_only = "--init-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -2955,6 +3741,12 @@ def main():
             isam2_timed[name].setdefault(ROUTE_KERNEL[b[col]], []).append(b[:3] + (3,))
     log(f"iSAM2 d = 3 buckets ({ISAM2_SHAPES}): {len(isam2_level)} level shapes, "
         f"{len(isam2_wild)} wildfire shapes, {len(isam2_cases)} distinct")
+
+    if init_only:
+        # phase 13 alone; no result line
+        run_init(torch, v1, here)
+        log(f"init-only run passed in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
 
     if navigation_only:
         # phase 12 alone; no result line
@@ -3359,9 +4151,13 @@ def main():
     nav_res = run_navigation(torch, v1)
     log(f"navigation phase done at {time.perf_counter() - t_start:.1f} s")
 
+    # 13. initialization and the linear extras
+    init_res = run_init(torch, v1, here)
+    log(f"init phase done at {time.perf_counter() - t_start:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 13. result lines
+    # 14. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
@@ -3379,7 +4175,7 @@ def main():
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=(launches[kname] + isam2["launches"][kname] + mixed_launches[kname]
                       + family["launches"][kname] + part_res["launches"][kname]
-                      + nav_res["launches"][kname]),
+                      + nav_res["launches"][kname] + init_res["launches"][kname]),
             max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
@@ -3394,6 +4190,7 @@ def main():
             partitioned_launches_per_solve_p4=part_res["a"][PARTS.index(4)]["launches"][kname],
             launches_navigation_lm=nav_res["b"]["launches"][kname],
             launches_navigation_isam2=nav_res["c"]["launches"][kname],
+            launches_init_path=init_res["launches"][kname],
             cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname]
             + opt_res["mixed"]["cuda_launches"][kname],
             cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname]
@@ -3410,7 +4207,7 @@ def main():
                                   "isam2": isam2, "isam2_family": family, "smart": smart_res,
                                   "optimizers": opt_res, "plans": plans,
                                   "host_engine": host_res, "partitioned": part_res,
-                                  "navigation": nav_res}),
+                                  "navigation": nav_res, "init": init_res}),
                      allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,9 @@ rows on the fake dims.
 `multifrontal_factor` / `multifrontal_apply` split the solve into
 factor-once / apply-many (the subgraph preconditioner's use): the factor
 runs the same bucket routing (K4 / K3 / K1) and keeps each bucket's L,
-Linv and W; an apply runs the forward solve (plain PyTorch, as in the JAX
-package) and K2 for the back-substitution.
+Linv and W; an apply runs the forward solve (one batched triangular solve
+a bucket, a library call: the JAX package's is plain XLA) and K2 for the
+back-substitution.
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ from gtsam_petercdev_torch.inference.symbolic import (
     EliminationPlan,
     symbolic_eliminate,
 )
-from gtsam_petercdev_torch.inference import kernels
 from gtsam_petercdev_torch.ops import cholesky, cholesky_v2
 
 
@@ -182,6 +182,9 @@ class DeviceBucket:
     # the same map split into (block index, index in the block), else None)
     ext: List[Tuple[int, torch.Tensor, torch.Tensor, torch.Tensor, Optional[tuple]]]
     ext_seg: Optional[DeviceGatherSum]
+    # the same maps into the flat ug pool (see DeviceMaps.ug_offs), group by
+    # group: [sum n_sel, m] entries, the pad column -> the pool's zero entry
+    ug_idx: Optional[torch.Tensor]
     sep_idx: torch.Tensor  # [B * ns]
     fro_idx: torch.Tensor  # [B * nf]
 
@@ -195,6 +198,11 @@ class DeviceMaps:
     iperm: torch.Tensor
     var_g_rows: torch.Tensor  # [n] g-pool row of each variable's frontal slot, gid order
     buckets: List[DeviceBucket]
+    # the flat ug pool of the bottom-up sweeps (`_eliminate`,
+    # `multifrontal_apply`): bucket bf's ug [B, ns*d] at ug_offs[bf], then
+    # one zero entry at ug_size
+    ug_offs: List[int]
+    ug_size: int
 
 
 _MAPS_UID = [0]
@@ -227,10 +235,12 @@ class NumericMaps:
 def _upload(maps: NumericMaps, device) -> DeviceMaps:
     d = maps.plan.d
     up = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64).to(device)
+    ug_offs = np.cumsum([0] + [bm.B * bm.ns * d for bm in maps.buckets]).tolist()
+    ug_size = ug_offs.pop()
     buckets = []
     for bm in maps.buckets:
         m = bm.mb * d
-        ext = []
+        ext, ug_idx = [], []
         for ch_bf, sel, pp in bm.ext_mm or ():
             nsel, ns_c = pp.shape
             sd_c = ns_c * d
@@ -246,10 +256,13 @@ def _upload(maps: NumericMaps, device) -> DeviceMaps:
             # a*d+e is block a, in-block e; the pad row is the zero block ns_c
             blocked = None if maps.buckets[ch_bf].ext_mm else (up(rowmap // d), up(rowmap % d))
             ext.append((ch_bf, up(sel), up(rowmap), up(np.arange(nsel)[:, None, None]), blocked))
+            flat = ug_offs[ch_bf] + np.asarray(sel)[:, None] * sd_c + rowmap
+            ug_idx.append(np.where(rowmap == sd_c, ug_size, flat))
         buckets.append(
             DeviceBucket(
                 ext=ext,
                 ext_seg=DeviceGatherSum.of(bm.ext_seg, device) if bm.ext_seg else None,
+                ug_idx=up(np.concatenate(ug_idx)) if ug_idx else None,
                 sep_idx=up(bm.sep_idx.reshape(-1)),
                 fro_idx=up(bm.fro_idx.reshape(-1)),
             )
@@ -267,6 +280,8 @@ def _upload(maps: NumericMaps, device) -> DeviceMaps:
         iperm=up(maps.plan.iperm),
         var_g_rows=up(var_g_rows),
         buckets=buckets,
+        ug_offs=ug_offs,
+        ug_size=ug_size,
     )
 
 
@@ -589,10 +604,10 @@ def bucket_route(bm: BucketMaps, d: int, itemsize: int) -> str:
 
 
 def _extend_add(db: DeviceBucket, outs, m: int, d: int):
-    """Children's Schur contributions in the parent's frame: (dF [B, m*m],
-    dg [B, m]). A child's dense U is gathered by the scalar row map; block-
-    layout U (from K4) by its block and in-block indices, without ever
-    becoming [B, sd, sd]."""
+    """Children's Schur complements U in the parent's frame: dF [B, m*m]. A
+    child's dense U is gathered by the scalar row map; block-layout U (from
+    K4) by its block and in-block indices, without ever becoming
+    [B, sd, sd]."""
     incs = []
     for ch_bf, sel, rowmap, c, blocked in db.ext:
         out = outs[ch_bf]
@@ -606,17 +621,22 @@ def _extend_add(db: DeviceBucket, outs, m: int, d: int):
             Us = tnf.pad(out["U"][sel], (0, 1, 0, 1))
             inc = Us[c, rowmap[:, :, None], rowmap[:, None, :]]
         incs.append(inc.reshape(-1, m * m))
-    ugs = {ch_bf: outs[ch_bf]["ug_blocks"].flatten(1) if "ug_blocks" in outs[ch_bf]
-           else outs[ch_bf]["ug"] for ch_bf, *_ in db.ext}
-    return apply_gather_sum(db.ext_seg, torch.cat(incs, dim=0)), _extend_add_g(db, ugs)
+    return apply_gather_sum(db.ext_seg, torch.cat(incs, dim=0))
 
 
-def _extend_add_g(db: DeviceBucket, ugs) -> torch.Tensor:
-    """Children's ug [B_c, sd_c] (by child bucket) in the parent's frame,
-    summed per parent: [B, m]."""
-    incgs = [torch.gather(tnf.pad(ugs[ch_bf][sel], (0, 1)), 1, rowmap)
-             for ch_bf, sel, rowmap, _, _ in db.ext]
-    return apply_gather_sum(db.ext_seg, torch.cat(incgs, dim=0))
+def _new_ug_pool(dm: DeviceMaps, like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(dm.ug_size + 1, dtype=like.dtype, device=like.device)
+
+
+def _push_ug(dm: DeviceMaps, ug_pool, bf: int, ug: torch.Tensor) -> None:
+    """Store bucket bf's ug ([B, sd] or K4's [B, ns, d]) in the flat pool."""
+    ug_pool[dm.ug_offs[bf] : dm.ug_offs[bf] + ug.numel()] = ug.reshape(-1)
+
+
+def _extend_add_g(db: DeviceBucket, ug_pool) -> torch.Tensor:
+    """Children's ug in the parent's frame, summed per parent: [B, m], by one
+    gather from the flat pool."""
+    return apply_gather_sum(db.ext_seg, ug_pool[db.ug_idx])
 
 
 def _eliminate(maps: NumericMaps, dm: DeviceMaps, pool, gp):
@@ -629,7 +649,8 @@ def _eliminate(maps: NumericMaps, dm: DeviceMaps, pool, gp):
     outs = []
     bad_total = torch.zeros((), dtype=torch.int32, device=pool.device)
     itemsize = pool.element_size()
-    for bm, db in zip(maps.buckets, dm.buckets):
+    ug_pool = _new_ug_pool(dm, pool)
+    for bf, (bm, db) in enumerate(zip(maps.buckets, dm.buckets)):
         B, nf, mb = bm.B, bm.nf, bm.mb
         m = mb * d
         blocks = pool[bm.blk_start : bm.blk_start + B * mb * mb]
@@ -642,11 +663,12 @@ def _eliminate(maps: NumericMaps, dm: DeviceMaps, pool, gp):
             Fm = cholesky.dense_from_blocks(blocks, B, mb, d)
             gm = gblocks.reshape(B, m)
             if db.ext:
-                dF, dg = _extend_add(db, outs, m, d)
-                Fm = Fm + dF.reshape(B, m, m)
-                gm = gm + dg
+                Fm = Fm + _extend_add(db, outs, m, d).reshape(B, m, m)
+                gm = gm + _extend_add_g(db, ug_pool)
             chol = cholesky.partial_cholesky if route == "smem" else cholesky_v2.partial_cholesky
             out = chol(Fm, gm, nf, d)
+        if bm.ns > 0:
+            _push_ug(dm, ug_pool, bf, out["ug_blocks"] if route == "blocks" else out["ug"])
         bad_total = bad_total + out["bad"]
         outs.append(out)
     return outs, bad_total
@@ -715,20 +737,26 @@ def multifrontal_factor(maps: NumericMaps, Ab, lam=0.0):
 def multifrontal_apply(maps: NumericMaps, chol, r: torch.Tensor) -> torch.Tensor:
     """x = H^-1 r for the factor `chol` of `multifrontal_factor`; r [n, <= d]
     in global variable-id order. Bottom-up forward solve L y = r with the
-    children's g-downdates extend-added, then K2's back-substitution."""
+    children's g-downdates extend-added, then K2's back-substitution.
+
+    An apply runs once a PCG step, and its launches a bucket set its time:
+    the forward solve is one batched triangular solve a bucket (the blocked
+    substitution of `kernels.forward_solve_bucket` launches ~7 ops a block
+    row), and the children's ug come from the flat pool `_eliminate` uses."""
     d = maps.plan.d
     dm = maps.on_device(r.device)
     gp = torch.zeros((maps.n_grows + 1, d), dtype=r.dtype, device=r.device)
     gp[dm.var_g_rows] = _pad_last(r, d)
-    ys, ugs = [], {}
+    ug_pool = _new_ug_pool(dm, r)
+    ys = []
     for bf, (bm, db, (L, Linv, W)) in enumerate(zip(maps.buckets, dm.buckets, chol)):
         B, nf, ns, fd = bm.B, bm.nf, bm.ns, bm.nf * d
         gm = gp[bm.g_start : bm.g_start + B * bm.mb].reshape(B, bm.mb * d)
         if db.ext:
-            gm = gm + _extend_add_g(db, ugs)
-        y = kernels.forward_solve_bucket(L, Linv, gm[:, :fd], nf, d)
+            gm = gm + _extend_add_g(db, ug_pool)
+        y = torch.linalg.solve_triangular(L, gm[:, :fd, None], upper=False)[..., 0]
         if ns > 0:
-            ugs[bf] = gm[:, fd:] - torch.einsum("bkf,bk->bf", W, y)
+            _push_ug(dm, ug_pool, bf, gm[:, fd:] - torch.einsum("bkf,bk->bf", W, y))
         ys.append(y)
     return _back_substitute(maps, dm, chol, ys)
 

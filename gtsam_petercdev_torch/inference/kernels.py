@@ -11,9 +11,11 @@ Numerical-failure surfacing (choleskyCareful semantics): a pivot <= eps
 (eps = 1e-10 in both dtypes) is clamped to eps and COUNTED; callers get the
 bad-pivot count so LM can tell "indefinite at this lambda" from success.
 
-`forward_solve_bucket` (the forward half of `elimination.multifrontal_apply`)
-and `tri_lower_inv` (the Bayes-tree marginals' L^-1) are plain PyTorch in
-the port as they are plain XLA in the JAX package: no TPU kernel to port.
+`forward_solve_bucket` (the JAX package's forward half of
+`multifrontal_apply`, blocked substitution; the port's apply solves each
+bucket by one batched triangular solve) and `tri_lower_inv` (the Bayes-tree
+marginals' L^-1) are plain PyTorch in the port as they are plain XLA in the
+JAX package: no TPU kernel to port.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ factor data, and `NonlinearFactorGraph` moves them to its device and dtype.
 
 Constrained rows (sigma == 0): `diagonal_sigmas` applies a large-but-finite
 weight mu; `constrained_sigmas` / `constrained_all` flag the rows for an
-exact constrained solve (that solve comes with a later slice).
+exact constrained solve (linear/qr.py, the dense solver's constrained
+branch).
 
 Robust m-estimators are weight functions w(||r||) applied as IRLS row
 scaling at linearization time.

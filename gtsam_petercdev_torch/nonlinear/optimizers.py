@@ -9,7 +9,8 @@ damped step reduces the true cost with model fidelity
 rho = costChange / linearizedCostChange >= min_model_fidelity; a trial whose
 factorization clamped pivots is rejected and re-damped.
 
-Solvers: "dense" (exact dense Cholesky), "pcg" (matrix-free block-Jacobi
+Solvers: "dense" (exact dense Cholesky; with exact sigma==0 equality rows
+the nullspace solve of linear/qr.py), "pcg" (matrix-free block-Jacobi
 CG, linear/solve.py), "multifrontal" (the sparse supernodal solve of
 inference/elimination.py, whose bucket kernels run on the card) and "schur"
 (bundle adjustment: batched landmark elimination and a dense reduced camera
@@ -97,14 +98,21 @@ def _build_fns(graph: NonlinearFactorGraph, params: OptimizerParams):
     def retract_fn(values: Values, delta):
         return values.retract(delta)
 
-    if params.solver == "dense":
-        if any(
-            b.constrained_mask is not None and b.constrained_mask.any()
-            for b in graph.batches
-        ):
-            raise NotImplementedError(
-                "exact equality constraints need the constrained solve, not ported yet"
-            )
+    if params.solver == "dense" and any(
+        b.constrained_mask is not None and b.constrained_mask.any() for b in graph.batches
+    ):
+        # exact sigma==0 equality rows -> the nullspace LSE (linear/qr.py)
+        from gtsam_petercdev_torch.linear import qr as linqr
+
+        def solve(values, lam, cache):
+            if cache.get("HgCd") is None:
+                lg = graph.linearize(values)
+                cache["HgCd"] = linqr.assemble_constrained(lg)
+                cache["lg"] = lg
+            x, lin_decrease = linqr.solve_lse(*cache["HgCd"], lam, diagonal_damping=damping)
+            return linsolve.unflatten_delta(cache["lg"], x), lin_decrease
+
+    elif params.solver == "dense":
 
         def solve(values, lam, cache):
             if cache.get("Hg") is None:

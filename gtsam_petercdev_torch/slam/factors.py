@@ -8,7 +8,8 @@ conventions):
 
 Pose3 factors carry closed-form batched Jacobians (`analytic`); the other
 types linearize through torch.func autodiff of `linearize_residual`.
-`nonlinear_equality` comes with the exact constrained solve (later slice).
+`nonlinear_equality` pins a variable exactly, for the constrained dense
+solve of linear/qr.py.
 """
 
 from __future__ import annotations
@@ -20,6 +21,17 @@ import torch
 from gtsam_petercdev_torch.core import manifold
 from gtsam_petercdev_torch.geometry import pose3
 from gtsam_petercdev_torch.nonlinear.factor_graph import FactorType
+
+
+def nonlinear_equality(type_name: str):
+    """NonlinearEquality<T> (gtsam/nonlinear/NonlinearEquality.h:44): pin a
+    variable EXACTLY to a value. Returns (factor_type, sqrt_info, mask) —
+    add with graph.add(ft, [key], value, sqrt_info, constrained_mask=mask)
+    and solve with the exact constrained path (solver="dense")."""
+    from gtsam_petercdev_torch.linear.noise import constrained_all
+
+    sqrt_info, mask = constrained_all(manifold.get(type_name).dim)
+    return prior_factor(type_name), sqrt_info, mask
 
 
 def _eye_like(r0, dim):

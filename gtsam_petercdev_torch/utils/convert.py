@@ -20,7 +20,12 @@ package and the port (the JAX side keeps its factor data as numpy already):
            PreintegratedRotation tuple of arrays), "GPSFactor" ([N, 3]),
            "BarometricFactor" ([N, 1]), the attitude, mag and
            constant-velocity factors (dicts of arrays, as their docstrings
-           in navigation/extra_factors.py name them)
+           in navigation/extra_factors.py name them), or an unstable
+           factor's: "ProjectionFactorRollingShutter" ({"uv", "K",
+           "alpha"}), "BetweenFactorEM<Type>" ({"measured": a value of
+           <Type>, "R_in", "R_out", "prior_in", "prior_out"}),
+           "InvDepthFactor3" ({"uv", "K"}); the value types InvDepthRay5 and
+           Vector9 are [N, 5] and [N, 9]
 
 This is the one place that carries state across: a JAX `Values` / graph,
 or a smart-factor batch, read out as numpy, becomes the port's here.
@@ -43,7 +48,8 @@ from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph, r
 from gtsam_petercdev_torch.nonlinear.fixed_lag import linear_container_factor
 from gtsam_petercdev_torch.nonlinear.values import Values
 from gtsam_petercdev_torch.sfm.bal import SfmCamera
-from gtsam_petercdev_torch.slam import factors, projection, smart
+from gtsam_petercdev_torch.slam import factors, projection, smart, unstable_factors
+from gtsam_petercdev_torch.slam import initialize  # noqa: F401  (registers Vector9)
 
 _LAYOUTS = {"Pose3": Pose3, "SfmCamera": SfmCamera, "NavState": NavState}
 _NAVIGATION = {
@@ -75,8 +81,11 @@ _PROJECTION = {
         projection.projection_factor_s2,
         projection.projection_factor_bundler_fixed,
         projection.stereo_factor,
+        unstable_factors.projection_factor_rolling_shutter,
+        unstable_factors.inv_depth_factor3,
     )
 }
+_EM = "BetweenFactorEM"
 
 
 def _layout(type_name: str, params):
@@ -93,6 +102,8 @@ def factor_type(name: str):
         return row_block(factor_type(base), start, stop)
     if name in _PROJECTION:
         return _PROJECTION[name]()
+    if name.startswith(_EM):
+        return unstable_factors.between_factor_em(name[len(_EM):])
     if name in _NAVIGATION:
         return _NAVIGATION[name]()
     if name.startswith("LinearContainer["):
@@ -126,6 +137,8 @@ def graph_from_arrays(
             params = (tuple(_layout(t, x0) for t, x0 in zip(ft.var_types, x0s)), sqrtH, rhs)
         elif name in _PARAM_LAYOUTS:
             params = _PARAM_LAYOUTS[name](params)
+        elif name.startswith(_EM):
+            params = dict(params, measured=_layout(ft.var_types[0], params["measured"]))
         elif name in _NAVIGATION:  # arrays or dicts of arrays, as they are
             pass
         elif not isinstance(params, dict):  # Prior / Between: a manifold value

@@ -45,17 +45,8 @@ def _between_np(a, b):
     return p.R.numpy(), p.t.numpy()
 
 
-def sphere_rings(
-    n_rings: int = 50,
-    n_per_ring: int = 50,
-    seed: int = 0,
-    rot_sigma: float = 0.01,
-    trans_sigma: float = 0.05,
-    init_rot_sigma: float = 0.05,
-    init_trans_sigma: float = 0.1,
-):
-    """Returns (values_arrays, factor_arrays) in float64 numpy."""
-    rng = np.random.default_rng(seed)
+def sphere_truth(n_rings: int, n_per_ring: int):
+    """The true poses of `sphere_rings` as (R [n, 3, 3], t [n, 3])."""
     n = n_rings * n_per_ring
     radius = n_per_ring / (2.0 * np.pi)
     r_idx, k_idx = np.divmod(np.arange(n), n_per_ring)
@@ -68,7 +59,22 @@ def sphere_rings(
     x_ax = np.stack([-np.sin(lon), np.cos(lon), np.zeros(n)], axis=1)
     z_ax = pos / radius
     y_ax = np.cross(z_ax, x_ax)
-    gt = (np.stack([x_ax, y_ax, z_ax], axis=2), pos)
+    return np.stack([x_ax, y_ax, z_ax], axis=2), pos
+
+
+def sphere_rings(
+    n_rings: int = 50,
+    n_per_ring: int = 50,
+    seed: int = 0,
+    rot_sigma: float = 0.01,
+    trans_sigma: float = 0.05,
+    init_rot_sigma: float = 0.05,
+    init_trans_sigma: float = 0.1,
+):
+    """Returns (values_arrays, factor_arrays) in float64 numpy."""
+    rng = np.random.default_rng(seed)
+    n = n_rings * n_per_ring
+    gt = sphere_truth(n_rings, n_per_ring)
 
     sigmas = np.array([rot_sigma] * 3 + [trans_sigma] * 3)
     a = np.concatenate([np.arange(n - 1), np.arange(n - n_per_ring)])
@@ -248,3 +254,191 @@ def imu_gps_drive(n_keyframes: int, rate_hz: int = 200, seed: int = 0,
              "imu": {"acc": acc.cpu().numpy(), "omega": omega.cpu().numpy(), "dts": dts.cpu().numpy()},
              "gps": gps, "keys": {"x": xk, "v": vk, "b": bk}}
     return values, factors, truth
+
+
+# --- scenes of the unstable factors ------------------------------------------
+
+# the outliers of `sphere_rings_outliers`: a share of the loop closures, each
+# composed with Exp(xi), xi ~ N(0, diag(OUTLIER_SIGMAS^2)) (rad, m); the EM
+# factor's outlier model is EM_WIDTH x wider than the inlier model, its
+# priors EM_PRIORS (inlier, outlier)
+OUTLIER_SIGMAS = (0.5,) * 3 + (2.0,) * 3
+EM_WIDTH = 100.0
+EM_PRIORS = (0.9, 0.1)
+
+
+def sphere_rings_outliers(n_rings: int = 50, n_per_ring: int = 50, seed: int = 0,
+                          share: float = 0.1):
+    """`sphere_rings(n_rings, n_per_ring, seed)` with `share` of its loop
+    closures (the ring-to-ring edges; the odometry is left as it is) turned
+    into outliers, drawn from numpy seed `seed`.
+
+    Returns (values, plain, em, truth, outliers): the values of sphere_rings;
+    `plain` its factors with the between batch split into odometry and loop
+    closures (BetweenPose3 both); `em` the same with BetweenFactorEMPose3 on
+    every loop closure (unit outer noise; the inlier model at the sphere's
+    sigmas, the outlier model EM_WIDTH x wider, priors EM_PRIORS); truth
+    (R, t); outliers the indices of the corrupted loop closures."""
+    values, factors = sphere_rings(n_rings, n_per_ring, seed=seed)
+    prior, (name, keys, (R, t), info) = factors
+    n_odo = n_rings * n_per_ring - 1
+    n_loop = len(keys) - n_odo
+    rng = np.random.default_rng(seed)
+    outliers = np.sort(rng.choice(n_loop, size=int(round(share * n_loop)), replace=False))
+    R, t = R.copy(), t.copy()
+    xi = rng.normal(size=(len(outliers), 6)) * np.asarray(OUTLIER_SIGMAS)
+    Ro, to = _compose_np((R[n_odo + outliers], t[n_odo + outliers]), _exp_np(xi))
+    R[n_odo + outliers], t[n_odo + outliers] = Ro, to
+    odo = (name, keys[:n_odo], (R[:n_odo], t[:n_odo]), info[:n_odo])
+    loop_keys, loop_meas = keys[n_odo:], (R[n_odo:], t[n_odo:])
+    plain = [prior, odo, (name, loop_keys, loop_meas, info[n_odo:])]
+    R_in = info[n_odo:]
+    em = [prior, odo, ("BetweenFactorEMPose3", loop_keys,
+                       {"measured": loop_meas, "R_in": R_in, "R_out": R_in / EM_WIDTH,
+                        "prior_in": np.full(n_loop, EM_PRIORS[0]),
+                        "prior_out": np.full(n_loop, EM_PRIORS[1])},
+                       np.broadcast_to(np.eye(12), (n_loop, 12, 12)).copy())]
+    return values, plain, em, sphere_truth(n_rings, n_per_ring), outliers
+
+
+# the camera scenes: Cal3_S2 (fx, fy, s, u0, v0) of a 640 x 480 image, a
+# keyframe every CAM_STEP m along the world x axis, looking along +z with a
+# slow yaw; points on a wall CAM_DEPTH m ahead (+- 2 m), within +-1.5 m of
+# their keyframes in x and +-3 m in y; pixel noise 1; the start perturbs the
+# poses by CAM_START (rad, m) and the points by POINT_START m
+CAM_K = (500.0, 500.0, 0.0, 320.0, 240.0)
+CAM_ROWS = 480
+CAM_STEP = 0.2
+CAM_DEPTH = 10.0
+CAM_START = (0.005, 0.05)
+POINT_START = 0.2
+CAM_PRIOR_SIGMAS = (1e-3, 1e-3)
+
+
+def _camera_track(n: int):
+    """True camera poses (R [n, 3, 3], t [n, 3]) of the camera scenes."""
+    k = np.arange(n, dtype=np.float64)
+    yaw = 0.05 * np.sin(k / 10.0)
+    w = np.stack([np.zeros(n), yaw, np.zeros(n)], axis=1)
+    R = so3.expmap(torch.from_numpy(w)).numpy()
+    t = np.stack([CAM_STEP * k, 0.1 * np.sin(k / 7.0), np.zeros(n)], axis=1)
+    return R, t
+
+
+def _wall_points(rng, centres: np.ndarray):
+    """One true point in front of each camera centre [P, 3]."""
+    P = len(centres)
+    return centres + np.stack([rng.uniform(-1.5, 1.5, P), rng.uniform(-3.0, 3.0, P),
+                               CAM_DEPTH + rng.uniform(-2.0, 2.0, P)], axis=1)
+
+
+def _perturbed_track(rng, R, t):
+    n = len(t)
+    R0 = R @ so3.expmap(torch.from_numpy(rng.normal(size=(n, 3)) * CAM_START[0])).numpy()
+    return R0, t + rng.normal(size=(n, 3)) * CAM_START[1]
+
+
+def _pose_priors(R, t, keys):
+    sig = np.array([CAM_PRIOR_SIGMAS[0]] * 3 + [CAM_PRIOR_SIGMAS[1]] * 3)
+    info = np.broadcast_to(noise.diagonal_sigmas(sig), (len(keys), 6, 6)).copy()
+    return ("PriorPose3", np.asarray(keys)[:, None], (R[keys], t[keys]), info)
+
+
+def rolling_shutter_scene(n_keyframes: int = 200, n_points: int = 10_000, n_obs: int = 4,
+                          seed: int = 0):
+    """A rolling-shutter bundle adjustment scene, from one numpy seed.
+
+    Each point is seen `n_obs` times, observation i through the pose
+    interpolated between keyframes k0 + i and k0 + i + 1 at alpha = the
+    pixel row / CAM_ROWS (found by a fixed point: project at alpha, take the
+    row, project again), a ProjectionFactorRollingShutter with pixel noise
+    1; priors (CAM_PRIOR_SIGMAS) on the first two keyframes at the truth.
+    Keys: keyframes 0..K-1, points K..K+P-1.
+
+    Returns (values, factors, truth) in the numpy format of utils/convert.py
+    (float64); truth {"R", "t", "points"}."""
+    from gtsam_petercdev_torch.geometry import cameras
+    from gtsam_petercdev_torch.slam.unstable_factors import interpolate_pose3
+
+    rng = np.random.default_rng(seed)
+    R, t = _camera_track(n_keyframes)
+    k0 = rng.integers(0, n_keyframes - n_obs, size=n_points)
+    pts = _wall_points(rng, t[k0 + n_obs // 2])
+    ka = (k0[:, None] + np.arange(n_obs)[None, :]).reshape(-1)
+    pj = np.repeat(np.arange(n_points), n_obs)
+    K = torch.tensor(CAM_K, dtype=torch.float64)
+    A = pose3.Pose3(torch.from_numpy(R[ka]), torch.from_numpy(t[ka]))
+    B = pose3.Pose3(torch.from_numpy(R[ka + 1]), torch.from_numpy(t[ka + 1]))
+    P = torch.from_numpy(pts[pj])
+    alpha = torch.full((len(ka),), 0.5, dtype=torch.float64)
+    for _ in range(3):
+        uv, _ = cameras.project_s2(interpolate_pose3(A, B, alpha), P, K)
+        alpha = torch.clamp(uv[:, 1] / CAM_ROWS, 0.0, 1.0)
+    uv, depth = cameras.project_s2(interpolate_pose3(A, B, alpha), P, K)
+    assert bool((depth > 0).all())
+    uv = uv.numpy() + rng.normal(size=(len(ka), 2))
+    R0, t0 = _perturbed_track(rng, R, t)
+    p0 = pts + rng.normal(size=pts.shape) * POINT_START
+    M = len(ka)
+    values = {"Pose3": (np.arange(n_keyframes), (R0, t0)),
+              "Point3": (n_keyframes + np.arange(n_points), p0)}
+    factors = [
+        _pose_priors(R, t, [0, 1]),
+        ("ProjectionFactorRollingShutter", np.stack([ka, ka + 1, n_keyframes + pj], axis=1),
+         {"uv": uv, "K": np.broadcast_to(np.asarray(CAM_K), (M, 5)).copy(),
+          "alpha": alpha.numpy()}, np.broadcast_to(np.eye(2), (M, 2, 2)).copy()),
+    ]
+    return values, factors, {"R": R, "t": t, "points": pts}
+
+
+# the inverse-depth scene's anchor prior: sigma on the ray's base (m); the
+# base is the anchor keyframe's start position, theta / phi / rho free
+RAY_BASE_SIGMA = 0.01
+
+
+def inv_depth_scene(n_poses: int = 200, n_landmarks: int = 5_000, n_obs: int = 4,
+                    seed: int = 0):
+    """An inverse-depth SLAM scene, from one numpy seed: each landmark an
+    InvDepthRay5 (x, y, z, theta, phi) anchored at keyframe k0 plus a
+    Vector1 inverse depth, seen from keyframes k0 .. k0 + n_obs - 1 through
+    InvDepthFactor3 (pixel noise 1). Anchor priors: each ray's base pinned
+    (RAY_BASE_SIGMA; zero weight on theta, phi) at its anchor keyframe's
+    start position, and priors (CAM_PRIOR_SIGMAS) on the first two
+    keyframes at the truth. Variables of dims 6 / 5 / 1. Keys: keyframes
+    0..K-1, rays K..K+L-1, inverse depths K+L..K+2L-1.
+
+    Returns (values, factors, truth) in the numpy format of utils/convert.py
+    (float64); truth {"R", "t", "points"}."""
+    from gtsam_petercdev_torch.geometry import cameras
+
+    rng = np.random.default_rng(seed)
+    R, t = _camera_track(n_poses)
+    k0 = rng.integers(0, n_poses - n_obs + 1, size=n_landmarks)
+    pts = _wall_points(rng, t[k0 + n_obs // 2])
+    ka = (k0[:, None] + np.arange(n_obs)[None, :]).reshape(-1)
+    lj = np.repeat(np.arange(n_landmarks), n_obs)
+    K = torch.tensor(CAM_K, dtype=torch.float64)
+    uv, depth = cameras.project_s2(pose3.Pose3(torch.from_numpy(R[ka]), torch.from_numpy(t[ka])),
+                                   torch.from_numpy(pts[lj]), K)
+    assert bool((depth > 0).all())
+    uv = uv.numpy() + rng.normal(size=(len(ka), 2))
+    R0, t0 = _perturbed_track(rng, R, t)
+    base = t0[k0]
+    ray = pts + rng.normal(size=pts.shape) * POINT_START - base
+    theta = np.arctan2(ray[:, 1], ray[:, 0])
+    phi = np.arctan2(ray[:, 2], np.linalg.norm(ray[:, :2], axis=1))
+    ray5 = np.concatenate([base, theta[:, None], phi[:, None]], axis=1)
+    rho = 1.0 / np.linalg.norm(ray, axis=1, keepdims=True)
+    L, M = n_landmarks, len(ka)
+    rays, rhos = n_poses + np.arange(L), n_poses + L + np.arange(L)
+    base_info = np.diag([1.0 / RAY_BASE_SIGMA] * 3 + [0.0, 0.0])
+    values = {"Pose3": (np.arange(n_poses), (R0, t0)), "InvDepthRay5": (rays, ray5),
+              "Vector1": (rhos, rho)}
+    factors = [
+        _pose_priors(R, t, [0, 1]),
+        ("PriorInvDepthRay5", rays[:, None], ray5, np.broadcast_to(base_info, (L, 5, 5)).copy()),
+        ("InvDepthFactor3", np.stack([ka, rays[lj], rhos[lj]], axis=1),
+         {"uv": uv, "K": np.broadcast_to(np.asarray(CAM_K), (M, 5)).copy()},
+         np.broadcast_to(np.eye(2), (M, 2, 2)).copy()),
+    ]
+    return values, factors, {"R": R, "t": t, "points": pts}
