@@ -19,6 +19,7 @@
                                           phase 11; no result line
     python3 chip_smoke.py --navigation-only  phases 1-2, then phase 12; no result line
     python3 chip_smoke.py --init-only     phases 1-2, then phase 13; no result line
+    python3 chip_smoke.py --robust-only   phases 1-2, then phase 14; no result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -88,8 +89,8 @@ a result line:
              re-eliminated cliques, peak device memory, ATE against the
              stream's ground truth, the final error beside a batch GN of the
              final graph from the iSAM2 estimate; gates: finite errors, no
-             bad pivots, K2 and K4 launched; it saves the whole ISAM2 every
-             300 lines (the last save holds line 600: phase 9 d))
+             bad pivots, K2 and K4 launched; it saves the whole ISAM2 at
+             line 450 (phase 9 d))
   7. smart   smart-factor BA through smart_levenberg_marquardt (dense
              library algebra, no bucket kernel, as in the JAX package): a
              ragged 20-camera / 500-track rig with a behind-camera and a
@@ -113,26 +114,26 @@ a result line:
              = slogdet (rel 1e-10); NCG's error falls in 50 iterations on a
              20-pose graph
   9. iSAM2 family  float64 unless stated, right after phase 6 on its tree
-             and stream: a) on the stream's first 150 lines, card = CPU path:
+             and stream: a) on the stream's first 120 lines, card = CPU path:
              every pose's tree covariance (rel 1e-9), run_city10000_fixed_lag
              at lag 50 (identical marginalized and deferred keys in every
              update, window estimates rel 1e-9), a checkpoint at line 100
-             resumed to 150 bitwise equal on each device; b) run c)'s final
-             tree (573 poses): TreeMarginals of every pose against H's
+             resumed to 120 bitwise equal on each device; b) run c)'s final
+             tree (465 poses): TreeMarginals of every pose against H's
              exact inverse and against dense Marginals with its 1e-10 jitter's
              first-order term added back (both <= 1e-8 x the largest entry),
              the sweep's ms, launches and device time, adjacent poses sharing
-             a clique; c) fixed lag 100 poses over 250 lines (loop closures
+             a clique; c) fixed lag 100 poses over 200 lines (loop closures
              to marginalized poses dropped): per-update ms split into
              ISAM2.update and marginalize_leaves, live cliques (gate: at most
              the window's variables), launches per update, the window against
              a batch GN of the kept history; d) run c)'s checkpoint at line
-             600 loaded onto the card and fed to line 750: bitwise run
+             450 loaded onto the card and fed to line 600: bitwise run
              c)'s estimate, the file's bytes, save and load ms; e) the
-             concurrent incremental pair against the batch pair over 45
+             concurrent incremental pair against the batch pair over 30
              lines, lag 15, a synchronize every 15 updates (5e-3); f)
              NonlinearISAM over 20 lines, reorder interval 10, within 1e-6
-             of a batch GN of its graph; g) float32 iSAM2 over 200 lines:
+             of a batch GN of its graph; g) float32 iSAM2 over 100 lines:
              finite, ATE within 10% of float64's, bad pivots, ms, launches;
              h) K4 / K1 / K2 against their plain versions at every shape
              they took in b)-g)
@@ -181,7 +182,7 @@ a result line:
              busy share, ATE, and its first 50 keyframes on the card against
              the CPU path (LM history rel 1e-9); c) IMUKittiExampleGPS's loop
              (models/imu_gps.py) through ISAM2 at ISAM2Params() defaults (d =
-             6, the CombinedImuFactor in row blocks) over the first 300
+             6, the CombinedImuFactor in row blocks) over the first 150
              keyframes: per-update ms, launches per update, ATE, the first 50
              updates against the card engine on the CPU (estimates rel 1e-9,
              equal n_reeliminated), no bad pivots, K4 and K2 launched, the
@@ -222,7 +223,7 @@ a result line:
              card = CPU (rel 1e-9); every LM of a)-e) with no bad pivot and
              no plain version; f) a Kalman filter + RTS over 10,000
              constant-velocity tracks x 1,000 steps (100 tracks on the CPU,
-             rel 1e-12), the EKF Pose2 localization over 250 steps (card =
+             rel 1e-12), the EKF Pose2 localization over 100 steps (card =
              CPU, rel 1e-12), min_eigenvalue_shifted of the sphere's H with
              the hvp matvec (iterations, ms; card = CPU on sphere_rings(10,
              10), rel 1e-9, eigvalsh beside it), 10^6 draws of
@@ -230,7 +231,30 @@ a result line:
              covariance within 1% of sqrt(Sigma_ii Sigma_jj)); g) K4 / K3 /
              K1 / K2 against their plain versions at every shape b), c) and
              e) gave them, float64 and float32
- 14. result  a `kernels` JSON line, the card line, then the last line
+ 14. robust  the robust and global front end, float64, after phase 13: a)
+             GNC-TLS (nonlinear/gnc.py, its dense inner solve) on the 2,500-
+             pose sphere with 245 of its 2,450 loop closures corrupted, the
+             prior and odometry pinned: outer and inner iterations, ms an
+             inner iteration (assembly, solve), recall and precision of the
+             weights < 0.5, ATE; card = CPU on a 40-pose cut (1e-8); b) the
+             Shonan staircase (sfm/shonan.py) on the sphere's 4,949 rotation
+             measurements, p 3..6, every level through LM (solver=
+             "multifrontal": SO(p) blocks of d = 3, 6, 10, 15 on K1-K4): per
+             level LM iterations, trials with bad pivots and rejected, the
+             lambdas, ms an iteration, an LM step's device busy, launches,
+             the plan and its routing, the certificate's lambda_min beside
+             eigvalsh of the dense 7,500 x 7,500 S, rotation errors against
+             the truth; the default route (pcg) card = CPU on a 100-pose cut;
+             c) MFAS (host) and translation recovery (sfm/translation.py) on
+             the sphere's 4,949 directions with 5% reversed: flagged edges,
+             the dense and multifrontal routes (1e-6 x max|t|), ATE; card =
+             CPU on a 100-node cut (1e-9); d) the sphere's between factors
+             through custom_factor (forward mode) against the built-in batch
+             (final error rel 1e-4, ms an LM iteration of both) and one GN
+             step of their linear containers against the multifrontal step
+             (1e-8); e) K4 / K3 / K1 / K2 against their plain versions at
+             every shape b) and c) gave them, float64 and float32
+ 15. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -283,12 +307,13 @@ FACTOR_KEYS = ("L", "Linv", "W", "y", "U", "ug")
 # CONTRACT_POSES poses; a profiled window of PROFILE_UPDATES updates ending
 # 10 updates before the last. Run c) was cut from 1,500 lines to make room
 # for phase 12 (its later updates are its slowest: on an H100, 169.9 s for
-# 1,500 lines, 112.4 s for 1,000, 65.1 s for 750); the plan line still
+# 1,500 lines, 112.4 s for 1,000, 65.1 s for 750; then to 600 to make room
+# for phase 14); the plan line still
 # orders the batch graph of the stream's first CITY_PLAN_LINES lines, the
 # graph of the JAX package's CCOLAMD reference
 # (tests/data/ordering_reference.json)
 CITY_POSES = 3687
-CITY_LINES = 750
+CITY_LINES = 600
 CITY_PLAN_LINES = 1500
 CITY_GATE_LINES = 150
 # where the card's wildfire descent and the CPU's part, the change one of
@@ -297,9 +322,9 @@ CITY_GATE_LINES = 150
 ROUNDING_CHANGE = 1e-12
 CONTRACT_POSES = 60
 PROFILE_UPDATES = 25
-# run c) saves the whole ISAM2 at every CITY_PROGRESS lines: its last save
-# holds line 600, from which phase 9 d) resumes to CITY_LINES
-CITY_PROGRESS = 300
+# run c) saves the whole ISAM2 at every CITY_PROGRESS lines: its save at
+# line 450 is the one phase 9 d) resumes from to CITY_LINES
+CITY_PROGRESS = 450
 # phase 9 (the iSAM2 family, float64 unless stated), on the same stream: a)
 # card = CPU over FAMILY_GATE_LINES lines (fixed lag FAMILY_GATE_LAG poses,
 # a checkpoint at FAMILY_GATE_CKPT); c) fixed-lag smoothing over
@@ -307,25 +332,27 @@ CITY_PROGRESS = 300
 # CONCURRENT_LINES lines, lag CONCURRENT_LAG, a synchronize every
 # CONCURRENT_SYNC updates; f) NonlinearISAM over NISAM_LINES lines, reorder
 # interval NISAM_REORDER; g) float32 iSAM2 over F32_LINES lines. c), e), f)
-# and g) are cut for the script's time (c) from 1,000 lines, which saves
+# and g) are cut for the script's time (a) from 150 lines and c) from 250
+# for phase 14; c) from 1,000 lines, which saves
 # ~40 s against a 1,200 s limit that the uncut script came within 124 s of,
 # and from 400 to make room for phase 12; e) from 300 lines at lag 50 and a
-# synchronize every 25, then from 60; f) from 200 lines, then from 40; g)
-# from 500 lines, then from 300): the batch filter, the batch smoother and
+# synchronize every 25, then from 60, then from 45 to make room for phase
+# 14; f) from 200 lines, then from 40; g) from 500 lines, then from 300,
+# then from 200 for phase 14): the batch filter, the batch smoother and
 # NonlinearISAM hold one factor batch per update, and each linearization
 # walks them all: their time grows with the stream's length (PERF.md
 # section 4)
-FAMILY_GATE_LINES = 150
+FAMILY_GATE_LINES = 120
 FAMILY_GATE_LAG = 50
 FAMILY_GATE_CKPT = 100
-FIXED_LAG_LINES = 250
+FIXED_LAG_LINES = 200
 FIXED_LAG = 100
-CONCURRENT_LINES = 45
+CONCURRENT_LINES = 30
 CONCURRENT_LAG = 15
 CONCURRENT_SYNC = 15
 NISAM_LINES = 20
 NISAM_REORDER = 10
-F32_LINES = 200
+F32_LINES = 100
 # the d = 3 bucket shapes of that run's level steps and wildfire rounds, as
 # tools/bench_bucket_shapes.py wrote them
 ISAM2_SHAPES = "tests/data/isam2_bucket_shapes.json"
@@ -370,10 +397,14 @@ PART_NE_GATE = 1e-12
 # phase 12 (navigation, float64): utils/synthetic.imu_gps_drive of
 # NAV_KEYFRAMES keyframes (one a second) at a NAV_RATE Hz IMU; a) the
 # batched preintegrate pass against NAV_ONE_AT_A_TIME intervals integrated
-# one at a time; b) batch LM of at most NAV_LM_ITERS iterations, its
-# iteration timed NAV_CHAIN chained, and the first NAV_CUT keyframes on the
+# one at a time; b) batch LM of at most NAV_LM_ITERS iterations (cut from 30,
+# of which it ran 16, to make room for phase 14), its
+# iteration timed NAV_CHAIN chained (cut from 4 to make room for phase 14),
+# and the first NAV_CUT keyframes on the
 # card against the CPU path over NAV_CUT_ITERS LM iterations; c) ISAM2 over
-# the first NAV_ISAM2_KEYFRAMES keyframes, its first NAV_ISAM2_GATE updates
+# the first NAV_ISAM2_KEYFRAMES keyframes (cut from 300 to make room for
+# phase 14: its updates grow with the keyframes on this chain), its first
+# NAV_ISAM2_GATE updates
 # against the card engine on the CPU; its final error over the final graph's
 # optimum against the JAX ISAM2's on the same loop, both read from
 # NAV_ISAM2_REF (tools/imu_isam2_reference.py, CPU: the optimum is LM to
@@ -382,17 +413,18 @@ PART_NE_GATE = 1e-12
 # CPU's) against the JAX ISAM2 with its tree ordered by the proxy COLAMD
 # (the port's AMD tree gives the same error on this chain, rel ~1e-11 on
 # the CPU), and to NAV_ORDERING_GATE against the JAX ISAM2 on its own
-# CCOLAMD tree (where the wildfire stops elsewhere: rel 1.9e-4 on the CPU);
+# CCOLAMD tree (where the wildfire stops elsewhere: rel 1.9e-4 on the CPU
+# at 300 keyframes);
 # batch LM (NAV_ISAM2_LM_ITERS iterations) from the drive's start reaches
 # that optimum to NAV_OPT_GATE (relative)
 NAV_KEYFRAMES = 1000
 NAV_RATE = 200
 NAV_ONE_AT_A_TIME = 5
-NAV_LM_ITERS = 30
-NAV_CHAIN = 4
+NAV_LM_ITERS = 8
+NAV_CHAIN = 2
 NAV_CUT = 50
 NAV_CUT_ITERS = 4
-NAV_ISAM2_KEYFRAMES = 300
+NAV_ISAM2_KEYFRAMES = 150
 NAV_ISAM2_GATE = 50
 NAV_ISAM2_LM_ITERS = 25
 NAV_OPT_GATE = 1e-5
@@ -410,7 +442,8 @@ NAV_PROGRESS = 25
 # INIT_OUTLIER_SHARE of the sphere's loop closures outliers, LM of at most
 # INIT_EM_ITERS; e2) the rolling-shutter scene (keyframes, points,
 # observations a point) and e3) the inverse-depth scene (poses, landmarks,
-# observations), LM of at most INIT_CAM_ITERS, the dense-oracle and card =
+# observations), LM of at most INIT_CAM_ITERS (cut from 10 to make room for
+# phase 14), the dense-oracle and card =
 # CPU gates (INIT_CAM_CUT_ITERS iterations) on INIT_CAM_CUT keyframes; c)
 # the subgraph PCG at tol INIT_SUBGRAPH_TOL and at most
 # INIT_SUBGRAPH_MAX_ITERS iterations (at its defaults, tol 1e-8 and 500
@@ -420,7 +453,8 @@ NAV_PROGRESS = 25
 # INIT_KF_CPU_TRACKS of the tracks (they are independent); f)
 # INIT_KF (tracks, steps) of the Kalman filter, INIT_EKF_STEPS of the EKF
 # (1,000 took 16.1 s on the card and as long again on its host's CPU: each
-# step is two forward-mode Jacobians of a 3-vector chart, ~45 small ops),
+# step is two forward-mode Jacobians of a 3-vector chart, ~45 small ops; cut
+# from 250 to make room for phase 14),
 # the power methods' card = CPU gate on sphere_rings(INIT_EIG_CUT),
 # INIT_SAMPLES draws of the sampler
 INIT_SPHERE = (N_RINGS, N_PER_RING)
@@ -434,16 +468,55 @@ INIT_OUTLIER_SHARE = 0.1
 INIT_EM_ITERS = 20
 INIT_RS = (200, 10_000, 4)
 INIT_INV_DEPTH = (200, 5_000, 4)
-INIT_CAM_ITERS = 10
+INIT_CAM_ITERS = 5
 INIT_CAM_CUT = 20
 INIT_CAM_CUT_ITERS = 4
 INIT_KF = (10_000, 1_000)
 INIT_KF_CPU_TRACKS = 100
 INIT_SUBGRAPH_TOL = 1e-9
 INIT_SUBGRAPH_MAX_ITERS = 2000
-INIT_EKF_STEPS = 250
+INIT_EKF_STEPS = 100
 INIT_EIG_CUT = (10, 10)
 INIT_SAMPLES = 1_000_000
+
+# phase 14 (the robust and global front end, float64): a) GNC-TLS on
+# sphere_rings_outliers(ROBUST_SPHERE)'s plain factors (prior, odometry and
+# loop closures as three batches), known_inliers pinning the prior and the
+# odometry, the JAX defaults otherwise (dense inner solve); card = CPU on
+# sphere_rings_outliers(ROBUST_GNC_CUT) to ROBUST_GNC_GATE (weights, poses);
+# b) Shonan averaging on sphere_rings(ROBUST_SPHERE)'s rotations at p
+# ROBUST_SHONAN_P, LM multifrontal (at most ROBUST_SHONAN_ITERS iterations),
+# the staircase made to climb every level (optimality_threshold +inf: at the
+# default -1e-4 it stops at the first level the certificate passes; each
+# level's verdict at -1e-4 is printed), each level's certificate beside
+# eigvalsh of the dense S; the default route (pcg) card = CPU on
+# sphere_rings(ROBUST_SHONAN_CUT): rotations to ROBUST_ROT_GATE, lambda_min
+# to 1e-9 x the Gershgorin scale, p_final equal; c) translation recovery
+# from utils/synthetic.sphere_directions (angular noise DIRECTION_SIGMA,
+# REVERSED_SHARE reversed), MFAS over 8 axes, edges whose weight exceeds
+# ROBUST_MFAS_THRESHOLD dropped (GTSAM's translation-averaging example's
+# 0.1), the dense and the multifrontal route to ROBUST_TRANS_GATE x max|t|,
+# card = CPU on sphere_directions(ROBUST_TRANS_CUT); d) the sphere's between
+# factors through custom_factor, LM multifrontal (tolerances
+# ROBUST_CUSTOM_TOL) to the built-in batch's error within ROBUST_CUSTOM_GATE
+# (rel), and one GN step of its linear containers to the multifrontal step
+# within ROBUST_STEP_GATE x its largest entry
+ROBUST_SPHERE = (N_RINGS, N_PER_RING)
+ROBUST_GNC_CUT = (5, 8)
+ROBUST_GNC_GATE = 1e-8
+ROBUST_SHONAN_P = (3, 6)
+ROBUST_SHONAN_ITERS = 60
+ROBUST_SHONAN_CUT = (10, 10)
+ROBUST_ROT_GATE = 1e-6
+ROBUST_MFAS_THRESHOLD = 0.1
+ROBUST_TRANS_CUT = (10, 10)
+ROBUST_TRANS_GATE = 1e-6
+ROBUST_CUSTOM_TOL = 1e-10
+ROBUST_CUSTOM_GATE = 1e-4
+ROBUST_STEP_GATE = 1e-8
+# phase 13 e1)'s ATE on sphere_rings_outliers(50, 50) on an H100 (PERF.md,
+# section 6): with BetweenFactorEMPose3, and with plain factors
+EM_ATE, PLAIN_ATE = 0.265666, 1.067634
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
@@ -1278,7 +1351,10 @@ def run_isam2(torch, here, v1):
 
     # c) the full run at City10000's parameters; counters reset just before.
     # Two windows of PROFILE_UPDATES updates near the end: one timed by
-    # layer (synchronized timers), then one under torch.profiler
+    # layer (synchronized timers), then one under torch.profiler recording
+    # the device alone (the window reads kernels only; with the host ops its
+    # ~82,000 launches took most of a minute to post-process: cut to make
+    # room for phase 14)
     path = write_stream(here, lines, CITY_LINES)
     first = CITY_LINES - 10 - PROFILE_UPDATES
     split = first - 10 - PROFILE_UPDATES
@@ -1295,7 +1371,7 @@ def run_isam2(torch, here, v1):
             timer.stop()
         elif k == first:
             torch.cuda.synchronize()
-            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"] = profile(activities=[ProfilerActivity.CUDA])
             window["prof"].start()
             window["t0"] = time.perf_counter()
         elif k == first + PROFILE_UPDATES:
@@ -1595,7 +1671,7 @@ def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
     """Phase 9: the iSAM2 family (leaf marginalization, Bayes-tree
     marginals, fixed-lag and concurrent smoothing, NonlinearISAM, engine
     checkpoints, a float32 run). `city`: phase 6 c)'s final tree, its
-    estimate and its checkpoint at line 600; without it (the
+    estimate and its checkpoint at line 450; without it (the
     --isam2-family-only run) that run is made here, unprofiled. `dev`: the
     device of every path but a)'s CPU reference (a rehearsal passes "cpu")."""
     import numpy as np
@@ -1784,7 +1860,7 @@ def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
                                  f"launches {launches}")
         del fl, g, v, gn
 
-        # d) phase 6 c)'s checkpoint at line 600, onto the card, fed to
+        # d) phase 6 c)'s checkpoint at line 450, onto the card, fed to
         # the end: bitwise the uninterrupted run
         ck = city["checkpoint"]
         sync()
@@ -3298,6 +3374,490 @@ def run_init(torch, v1, here, dev="cuda"):
     return out
 
 
+# --- phase 14: the robust and global front end ----------------------------------------------
+
+
+def parse_lm_trials(text):
+    """LM's verbose trial lines as (lambda, "bad" | "accepted" | "rejected")."""
+    out = []
+    for ln in text.splitlines():
+        if not ln.startswith("LM iter "):
+            continue
+        lam = float(ln.split("lam=")[1].split(":")[0])
+        if "bad pivots" in ln:
+            out.append((lam, "bad"))
+            continue
+        errs, rho = ln.split(": ", 1)[1].split(" rho=")
+        old, new = (float(x) for x in errs.split(" -> "))
+        out.append((lam, "accepted" if old - new > 0 and float(rho) >= 1e-3 else "rejected"))
+    return out
+
+
+class LMRecorder:
+    """Each `levenberg_marquardt` call while the context is open (the entry
+    points call it through its module): the result, the wall seconds (the
+    card synchronized after it), the graph, its launches (the counters set
+    to 0 just before it and read just after) and its trials (LM run
+    verbose: its lines print floats the loop reads anyway)."""
+
+    def __init__(self, v1, sync):
+        self.v1, self.sync, self.calls = v1, sync, []
+
+    def __enter__(self):
+        import dataclasses
+
+        from gtsam_petercdev_torch.nonlinear import optimizers
+
+        self.mod, self.saved = optimizers, optimizers.levenberg_marquardt
+        orig = self.saved
+
+        def recorded(graph, values, params=None, *, device="cuda"):
+            params = dataclasses.replace(params or optimizers.LMParams(), verbose=True)
+            buf = io.StringIO()
+            self.sync()
+            self.v1.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = orig(graph, values, params, device=device)
+            self.sync()
+            self.calls.append(dict(result=res, s=time.perf_counter() - t0, graph=graph,
+                                   launches=self.v1.launch_counts(),
+                                   trials=parse_lm_trials(buf.getvalue())))
+            return res
+
+        optimizers.levenberg_marquardt = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.levenberg_marquardt = self.saved
+
+
+class GncRecorder:
+    """The ms of each weighted assembly (linearize, row scaling, the dense
+    (H, g)) and each dense solve of `gnc`'s inner iterations while the
+    context is open (the card synchronized on both sides)."""
+
+    def __init__(self, sync):
+        self.sync, self.assemble_ms, self.solve_ms = sync, [], []
+
+    def __enter__(self):
+        from gtsam_petercdev_torch.linear import solve as linsolve
+        from gtsam_petercdev_torch.nonlinear import gnc
+
+        self.mods = (gnc, linsolve)
+        self.saved = (gnc._weighted_assemble, linsolve.dense_solve)
+
+        def timed(fn, out):
+            def run(*a, **k):
+                self.sync()
+                t0 = time.perf_counter()
+                r = fn(*a, **k)
+                self.sync()
+                out.append((time.perf_counter() - t0) * 1e3)
+                return r
+
+            return run
+
+        gnc._weighted_assemble = timed(self.saved[0], self.assemble_ms)
+        linsolve.dense_solve = timed(self.saved[1], self.solve_ms)
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0]._weighted_assemble, self.mods[1].dense_solve = self.saved
+
+
+def gauged_angles(np, R, R_true):
+    """Angles (rad) between R_i and the truth's gauged R_0^T R_i."""
+    g = np.einsum("ij,njk->nik", R_true[0].T, R_true)
+    c = (np.einsum("nij,nij->n", g, R) - 1.0) / 2.0
+    return np.arccos(np.clip(c, -1.0, 1.0))
+
+
+def dense_certificate(torch, shonan, m, Y):
+    """lambda_min of the certificate S = L - blockdiag(Lambda) (3N x 3N)
+    assembled dense at Y [N, 3, p], by torch.linalg.eigvalsh."""
+    N = Y.shape[0]
+    LY = shonan._connection_laplacian_matvec(m, N)(Y)
+    Lam = torch.einsum("nap,nbp->nab", LY, Y)
+    Lam = 0.5 * (Lam + Lam.transpose(-1, -2))
+    dev, dt = Y.device, Y.dtype
+    i = torch.as_tensor(m.i, dtype=torch.int64).to(dev)
+    j = torch.as_tensor(m.j, dtype=torch.int64).to(dev)
+    k = m.kappa[:, None, None].to(dt)
+    eye = torch.eye(3, dtype=dt, device=dev).expand(len(i), 3, 3)
+    a3 = torch.arange(3, device=dev)
+    S = torch.zeros((3 * N, 3 * N), dtype=dt, device=dev)
+
+    def put(r, c, blk):
+        rows = (3 * r)[:, None, None] + a3[None, :, None]
+        cols = (3 * c)[:, None, None] + a3[None, None, :]
+        S.index_put_((rows.expand_as(blk), cols.expand_as(blk)), blk, accumulate=True)
+
+    put(i, i, k * eye)
+    put(j, j, k * eye)
+    put(i, j, -k * m.R)
+    put(j, i, -k * m.R.transpose(-1, -2))
+    nn = torch.arange(N, device=dev)
+    put(nn, nn, -Lam)
+    lam = float(torch.linalg.eigvalsh(S)[0])
+    del S
+    return lam
+
+
+def run_robust(torch, v1, dev="cuda"):
+    """Phase 14 (float64): a) GNC-TLS on the sphere with outlier loop
+    closures; b) the Shonan staircase on the sphere's rotations through the
+    multifrontal route, level by level, and its default route card = CPU;
+    c) MFAS and translation recovery on the sphere's directions; d) custom
+    and linear-container factors on the sphere; e) the four kernels at
+    every bucket shape b) and c) gave them (d)'s are phase 4's plan's,
+    checked in phase 3)."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.inference import elimination, kernels
+    from gtsam_petercdev_torch.nonlinear import custom, gnc, optimizers
+    from gtsam_petercdev_torch.nonlinear.optimizers import LMParams, OptimizerParams, gauss_newton
+    from gtsam_petercdev_torch.ops import cholesky_v2 as v2
+    from gtsam_petercdev_torch.geometry import pose3
+    from gtsam_petercdev_torch.sfm import shonan, translation
+    from gtsam_petercdev_torch.utils import convert, synthetic
+
+    out, secs, launches = {}, {}, {k: 0 for k in KERNELS}
+    shapes = set()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = t_sub = time.perf_counter()
+
+    def add_launches(counts):
+        for k, x in counts.items():
+            launches[k] += x
+
+    def lap(key):
+        nonlocal t_sub
+        secs[key] = time.perf_counter() - t_sub
+        t_sub = time.perf_counter()
+
+    # a) GNC-TLS on the sphere's plain factors with outlier loop closures
+    def gnc_run(shape, device):
+        va, plain, _, truth, outl = synthetic.sphere_rings_outliers(*shape, seed=SEED)
+        g = convert.graph_from_arrays(plain, device=device)
+        v = convert.values_from_arrays(va, device=device)
+        known = convert.gnc_known_inliers({0: np.ones(1), 1: np.ones(len(plain[1][1]))})
+        return gnc.gnc(g, v, gnc.GncParams(known_inliers=known), device=device), truth, outl
+
+    sync()
+    t0 = time.perf_counter()
+    with GncRecorder(sync) as rec:
+        res, truth, outliers = gnc_run(ROBUST_SPHERE, dev)
+    gnc_s = time.perf_counter() - t0
+    n_inner = len(rec.solve_ms)
+    flagged = np.flatnonzero(res.weights[2].cpu().numpy() < 0.5)
+    hit = len(np.intersect1d(flagged, outliers))
+    recall, precision = hit / max(1, len(outliers)), hit / max(1, len(flagged))
+    ate = pose3_ate(res.values, truth[1])
+    cut = {}
+    for d_ in dict.fromkeys((dev, "cpu")):
+        r_, _, _ = gnc_run(ROBUST_GNC_CUT, d_)
+        p_ = r_.values.params("Pose3")
+        cut[d_] = (r_.iterations, torch.cat([w.cpu() for w in r_.weights]),
+                   p_.R.cpu(), p_.t.cpu())
+    w_gap = (cut[dev][1] - cut["cpu"][1]).abs().max().item()
+    p_gap = max((cut[dev][k] - cut["cpu"][k]).abs().max().item() for k in (2, 3))
+    D = 6 * ROBUST_SPHERE[0] * ROBUST_SPHERE[1]
+    out["a"] = dict(poses=D // 6, D=D, outer_iterations=res.iterations, inner_iterations=n_inner,
+                    s=gnc_s, assemble_ms=float(np.mean(rec.assemble_ms)),
+                    solve_ms=float(np.mean(rec.solve_ms)),
+                    ms_per_inner=1e3 * gnc_s / max(1, n_inner), error=res.error,
+                    outliers=len(outliers), flagged=len(flagged), recall=recall,
+                    precision=precision, ate=ate, ate_em_phase13=EM_ATE,
+                    ate_plain_phase13=PLAIN_ATE,
+                    cut=ROBUST_GNC_CUT, cut_iterations=[cut[dev][0], cut["cpu"][0]],
+                    cut_weights_abs=w_gap, cut_poses_abs=p_gap)
+    log(f"robust a) GNC-TLS on sphere_rings_outliers{ROBUST_SPHERE} (D = {D}, dense): "
+        f"{res.iterations} outer, {n_inner} inner iterations in {gnc_s:.2f} s "
+        f"({out['a']['ms_per_inner']:.1f} ms an inner iteration: assembly "
+        f"{out['a']['assemble_ms']:.3f} ms, dense solve {out['a']['solve_ms']:.3f} ms); weights "
+        f"< 0.5 on {len(flagged)} loop closures: recall {recall:.4f}, precision {precision:.4f} "
+        f"against the {len(outliers)} corrupted; ATE {ate:.6f} m (phase 13 e1): "
+        f"BetweenFactorEMPose3 {EM_ATE} m, plain factors {PLAIN_ATE} m); "
+        f"sphere_rings_outliers{ROBUST_GNC_CUT} card "
+        f"against the CPU: outer iterations {cut[dev][0]} / {cut['cpu'][0]}, weights {w_gap:.3e}, "
+        f"poses {p_gap:.3e} (gate {ROBUST_GNC_GATE})")
+    if not (np.isfinite(res.error) and np.isfinite(ate) and cut[dev][0] == cut["cpu"][0]
+            and w_gap <= ROBUST_GNC_GATE and p_gap <= ROBUST_GNC_GATE):
+        raise AssertionError("robust a): GNC failed its gates")
+    del res, cut
+    lap("a")
+
+    # b) the Shonan staircase on the sphere's rotations, every level
+    va, fa = synthetic.sphere_rings(*ROBUST_SPHERE, seed=SEED)
+    m = shonan.measurements_from_between_graph(convert.graph_from_arrays(fa, device=dev))
+    R_true = synthetic.sphere_truth(*ROBUST_SPHERE)[0]
+    certs = []
+    orig_cert = shonan.certificate_min_eigenvalue
+
+    def cert(m_, Y, iters=300, seed=0):
+        sync()
+        t0 = time.perf_counter()
+        lam = orig_cert(m_, Y, iters, seed)
+        certs.append(dict(p=Y.shape[-1], lam=lam, ms=(time.perf_counter() - t0) * 1e3, Y=Y))
+        return lam
+
+    lm_p = LMParams(solver="multifrontal", max_iterations=ROBUST_SHONAN_ITERS)
+    shonan.certificate_min_eigenvalue = cert
+    try:
+        t0 = time.perf_counter()
+        with LMRecorder(v1, sync) as lm_rec, counting_plain() as plain_b, \
+                EliminationRecorder() as er_b:
+            sres = shonan.shonan_averaging(m, *ROBUST_SHONAN_P, optimality_threshold=float("inf"),
+                                           lm_params=lm_p, seed=SEED)
+        staircase_s = time.perf_counter() - t0
+    finally:
+        shonan.certificate_min_eigenvalue = orig_cert
+    shapes |= er_b.shapes
+    levels = []
+    for call, c in zip(lm_rec.calls, certs):
+        r, p = call["result"], c["p"]
+        add_launches(call["launches"])
+        maps = next(iter(call["graph"]._mf_plans.values()))[1]
+        log_routing(elimination, f"robust b) SO({p}) plan", maps)
+        graph, vals = call["graph"], r.values
+
+        def step(v, graph=graph):
+            return v.retract(elimination.solve_linearized(graph, v, 1e-5)[0])
+
+        prof = profile_step(torch, step, vals, top=5, reps=1, host=False) if dev == "cuda" else None
+        t0 = time.perf_counter()
+        lam_dense = dense_certificate(torch, shonan, m, c["Y"])
+        eig_s = time.perf_counter() - t0
+        ang = gauged_angles(np, shonan.round_solution(vals.params(f"SOn{p}")).cpu().numpy(), R_true)
+        kinds = [k for _, k in call["trials"]]
+        lev = dict(p=p, d=p * (p - 1) // 2, iterations=r.iterations, s=call["s"],
+                   ms_per_iteration=1e3 * call["s"] / max(1, r.iterations),
+                   error=[r.error_history[0], r.error], trials=len(kinds),
+                   bad_pivot_trials=kinds.count("bad"), rejected_trials=kinds.count("rejected"),
+                   lambdas=[lam for lam, _ in call["trials"]], launches=call["launches"],
+                   plan=plan_facts(elimination, maps),
+                   device_busy_ms=prof[0] if prof else None,
+                   step_launches=prof[1] if prof else None,
+                   lam_min=c["lam"], certificate_ms=c["ms"], lam_min_eigvalsh=lam_dense,
+                   eigvalsh_s=eig_s, certified_default=c["lam"] >= -1e-4,
+                   angle_max=float(ang.max()), angle_rms=float(np.sqrt(np.mean(ang * ang))))
+        levels.append(lev)
+        log(f"robust b) SO({p}) (d = {lev['d']}): LM {r.error_history[0]:.6e} -> {r.error:.6e} in "
+            f"{r.iterations} iterations ({call['s']:.2f} s, {lev['ms_per_iteration']:.1f} ms an "
+            f"iteration), {len(kinds)} trials ({lev['bad_pivot_trials']} with bad pivots, "
+            f"{lev['rejected_trials']} rejected), lambda {lev['lambdas'][0]:.1e} .. "
+            f"{min(lev['lambdas']):.1e} .. {lev['lambdas'][-1]:.1e}; launches {call['launches']}; "
+            f"plan {lev['plan']}; "
+            + (f"an LM step's device busy {prof[0]:.3f} ms, {prof[1]} kernels; " if prof else "")
+            + f"certificate lambda_min {c['lam']:.9e} ({c['ms']:.1f} ms, 300 power steps), "
+            f"eigvalsh of the dense S {lam_dense:.9e} ({eig_s:.2f} s); certified at -1e-4 "
+            f"{lev['certified_default']}; rotations against the truth (gauged): max "
+            f"{lev['angle_max']:.3e} rad, RMS {lev['angle_rms']:.3e} rad")
+        check_result(r, f"robust b) SO({p}) LM")
+    # the clamped pivots (EliminationRecorder: pivots) come from the trials LM
+    # rejected for them, and only from those
+    if (er_b.bad > 0) != any(lv["bad_pivot_trials"] for lv in levels) or (dev == "cuda" and plain_b):
+        raise AssertionError("robust b): clamped pivots outside the rejected trials, or a plain "
+                             "version on the card")
+    del lm_rec, certs
+
+    # the default route (pcg) card = CPU on a cut
+    va_c, fa_c = synthetic.sphere_rings(*ROBUST_SHONAN_CUT, seed=SEED)
+    sh = {}
+    for d_ in dict.fromkeys((dev, "cpu")):
+        m_c = shonan.measurements_from_between_graph(convert.graph_from_arrays(fa_c, device=d_))
+        t0 = time.perf_counter()
+        sh[d_] = (shonan.shonan_averaging(m_c, *ROBUST_SHONAN_P, seed=SEED),
+                  time.perf_counter() - t0)
+    deg = np.zeros(ROBUST_SHONAN_CUT[0] * ROBUST_SHONAN_CUT[1])
+    kk = m_c.kappa.cpu().numpy()
+    np.add.at(deg, m_c.i, kk)
+    np.add.at(deg, m_c.j, kk)
+    a_, b_ = sh[dev][0], sh["cpu"][0]
+    rot_gap = (a_.rotations.cpu() - b_.rotations).abs().max().item()
+    lam_gap = abs(a_.min_eigenvalue - b_.min_eigenvalue)
+    lam_gate = 1e-9 * 2.0 * deg.max()
+    out["b"] = dict(nodes=m.num_nodes, edges=m.num_edges, staircase_s=staircase_s,
+                    p_final=sres.p_final, levels=levels, bad_pivots=er_b.bad,
+                    plain_calls=dict(plain_b),
+                    default_route_cut=dict(shape=ROBUST_SHONAN_CUT, p_final=[a_.p_final, b_.p_final],
+                                           certified=[a_.certified, b_.certified],
+                                           lam_min=[a_.min_eigenvalue, b_.min_eigenvalue],
+                                           rotations_abs=rot_gap, lam_abs=lam_gap,
+                                           s=[sh[dev][1], sh["cpu"][1]]))
+    log(f"robust b) staircase on {m.num_nodes} rotations, {m.num_edges} measurements, p "
+        f"{ROBUST_SHONAN_P[0]}..{ROBUST_SHONAN_P[1]} (every level): {staircase_s:.1f} s; pivots "
+        f"clamped {er_b.bad} (in the trials LM rejected for them); plain versions "
+        f"{dict(plain_b)}; the default route (pcg) on "
+        f"sphere_rings{ROBUST_SHONAN_CUT}: p_final {a_.p_final} / {b_.p_final}, certified "
+        f"{a_.certified} / {b_.certified}, lambda_min {a_.min_eigenvalue:.9e} / "
+        f"{b_.min_eigenvalue:.9e} (card / CPU, {sh[dev][1]:.1f} / {sh['cpu'][1]:.1f} s): rotations "
+        f"{rot_gap:.3e} (gate {ROBUST_ROT_GATE}), lambda_min {lam_gap:.3e} (gate {lam_gate:.3e})")
+    if not (a_.p_final == b_.p_final and rot_gap <= ROBUST_ROT_GATE and lam_gap <= lam_gate
+            and all(np.isfinite(lv["lam_min"]) for lv in levels)):
+        raise AssertionError("robust b): the Shonan staircase failed its gates")
+    lap("b")
+
+    # c) MFAS and translation recovery on the sphere's directions
+    def directions(shape):
+        edges, dirs, t_true, flipped = synthetic.sphere_directions(*shape, seed=SEED)
+        t0 = time.perf_counter()
+        w = translation.mfas_outlier_weights([tuple(e) for e in edges.tolist()], dirs)
+        keep = w <= ROBUST_MFAS_THRESHOLD
+        anchor = float(np.linalg.norm(t_true[edges[0, 1]] - t_true[edges[0, 0]]))
+        return edges, dirs, t_true - t_true[edges[0, 0]], flipped, keep, anchor, \
+            time.perf_counter() - t0
+
+    def recover(edges, dirs, anchor, device, solver="dense"):
+        vals = translation.recover_translations(
+            [tuple(e) for e in edges.tolist()], dirs, scale_anchor=anchor,
+            params=LMParams(solver=solver, max_iterations=60), device=device)
+        keys = np.asarray(vals.type_keys("Point3"))
+        return keys, vals.params("Point3").cpu().numpy()
+
+    def t_ate(keys, est, t_true):
+        d = est - t_true[keys]
+        return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
+
+    def collapsed(edges, keys, est):
+        """Edges whose ends landed within 1e-3 m of each other: the
+        direction residual's zero at t_i = t_j."""
+        pos = dict(zip(keys.tolist(), est))
+        return int(sum(np.linalg.norm(pos[a] - pos[b]) < 1e-3 for a, b in edges.tolist()))
+
+    edges, dirs, t_true, flipped, keep, anchor, mfas_s = directions(ROBUST_SPHERE)
+    n_flag_rev = int(np.sum(~keep[flipped]))
+    rec_c = {}
+    with LMRecorder(v1, sync) as lm_c, counting_plain() as plain_c, EliminationRecorder() as er_c:
+        for solver in ("dense", "multifrontal"):
+            keys, est = recover(edges[keep], dirs[keep], anchor, dev, solver)
+            rec_c[solver] = (keys, est, t_ate(keys, est, t_true))
+        ok = np.ones(len(edges), dtype=bool)
+        ok[flipped] = False
+        keys_o, est_o = recover(edges[ok], dirs[ok], anchor, dev)
+    shapes |= er_c.shapes
+    for call in lm_c.calls:
+        add_launches(call["launches"])
+    route_gap = np.abs(rec_c["dense"][1] - rec_c["multifrontal"][1]).max() / np.abs(
+        rec_c["dense"][1]).max()
+    cut_c = {}
+    for d_ in dict.fromkeys((dev, "cpu")):
+        e_, di_, tt_, _, kp_, an_, _ = directions(ROBUST_TRANS_CUT)
+        cut_c[d_] = recover(e_[kp_], di_[kp_], an_, d_)[1]
+    cut_gap = np.abs(cut_c[dev] - cut_c["cpu"]).max() / np.abs(cut_c["cpu"]).max()
+    calls = {k: c for k, c in zip(("dense", "multifrontal", "oracle"), lm_c.calls)}
+    out["c"] = dict(edges=len(edges), reversed=len(flipped), mfas_s=mfas_s,
+                    threshold=ROBUST_MFAS_THRESHOLD, flagged=int(np.sum(~keep)),
+                    flagged_reversed=n_flag_rev,
+                    routes={k: dict(iterations=c["result"].iterations, s=c["s"],
+                                    ms_per_iteration=1e3 * c["s"] / max(1, c["result"].iterations),
+                                    error=c["result"].error, launches=c["launches"])
+                            for k, c in calls.items()},
+                    ate=rec_c["dense"][2], ate_multifrontal=rec_c["multifrontal"][2],
+                    ate_true_reversed_dropped=t_ate(keys_o, est_o, t_true),
+                    collapsed_edges=collapsed(edges[keep], *rec_c["dense"][:2]),
+                    route_rel=float(route_gap), cut=ROBUST_TRANS_CUT, cut_rel=float(cut_gap),
+                    bad_pivots=er_c.bad, plain_calls=dict(plain_c))
+    log(f"robust c) {len(edges)} directions ({len(flipped)} reversed); MFAS over 8 axes "
+        f"{mfas_s:.2f} s (host): {out['c']['flagged']} edges above {ROBUST_MFAS_THRESHOLD}, "
+        f"{n_flag_rev} of them reversed; recovery without them: "
+        + "; ".join(f"{k} {c['result'].iterations} LM iterations, {c['s']:.2f} s "
+                    f"({out['c']['routes'][k]['ms_per_iteration']:.1f} ms an iteration), "
+                    f"launches {c['launches']}" for k, c in calls.items())
+        + f"; ATE (anchored scale) {rec_c['dense'][2]:.6f} m (multifrontal "
+        f"{rec_c['multifrontal'][2]:.6f}; without the truly reversed edges instead "
+        f"{out['c']['ate_true_reversed_dropped']:.6f} m); {out['c']['collapsed_edges']} of the "
+        f"{int(keep.sum())} kept edges collapsed below 1e-3 m; dense against multifrontal "
+        f"{route_gap:.3e} x max|t| (gate {ROBUST_TRANS_GATE}); sphere_directions"
+        f"{ROBUST_TRANS_CUT} card against the CPU {cut_gap:.3e} (gate 1e-9); bad pivots "
+        f"{er_c.bad}; plain versions {dict(plain_c)}")
+    if not (route_gap <= ROBUST_TRANS_GATE and cut_gap <= 1e-9 and er_c.bad == 0
+            and not (dev == "cuda" and plain_c) and np.isfinite(rec_c["dense"][2])):
+        raise AssertionError("robust c): translation recovery failed its gates")
+    lap("c")
+
+    # d) the sphere's between factors as a custom factor; linear containers
+    def between_err(xs, measured):
+        x1, x2 = xs
+        return pose3.local(measured, pose3.between(x1, x2))
+
+    g_ref = convert.graph_from_arrays(fa, device=dev)
+    v0 = convert.values_from_arrays(va, device=dev)
+    name, keys, (R, t), info = fa[1]
+    g_cus = convert.graph_from_arrays(fa[:1], device=dev)
+    g_cus.add_batch(custom.custom_factor("CustomBetweenPose3", ("Pose3", "Pose3"), 6, between_err),
+                    keys, pose3.Pose3(torch.as_tensor(R), torch.as_tensor(t)), info)
+    lg0 = g_ref.linearize(v0)
+    plan = elimination._graph_plan(g_ref, lg0)  # one structure: one plan
+    elimination.set_graph_plan(g_cus, g_cus.linearize(v0), *plan)
+    tol_p = LMParams(solver="multifrontal", relative_error_tol=ROBUST_CUSTOM_TOL,
+                     absolute_error_tol=ROBUST_CUSTOM_TOL)
+    with LMRecorder(v1, sync) as lm_d, counting_plain() as plain_d, EliminationRecorder() as er_d:
+        r_ref = optimizers.levenberg_marquardt(g_ref, v0, tol_p, device=dev)
+        r_cus = optimizers.levenberg_marquardt(g_cus, v0, tol_p, device=dev)
+        step, _ = elimination.solve_linearized(g_ref, v0, 0.0, cache={"mf_lg": lg0})
+        g_lc = custom.linear_container_graph(g_ref, v0)
+        elimination.set_graph_plan(g_lc, g_lc.linearize(v0), *plan)
+        v1.reset_launch_counts()
+        gn = gauss_newton(g_lc, v0, OptimizerParams(solver="multifrontal", max_iterations=1),
+                          device=dev)
+        sync()
+        gn_launches = v1.launch_counts()
+    # d)'s plan is phase 4's sphere optimizer plan: phase 3 checks its shapes
+    add_launches(gn_launches)
+    for call in lm_d.calls:
+        add_launches(call["launches"])
+    moved = v0.local(gn.values)["Pose3"]
+    step_gap = ((moved - step["Pose3"]).abs().max() / step["Pose3"].abs().max()).item()
+    gap = (r_cus.error - r_ref.error) / r_ref.error
+    cb, cc = lm_d.calls
+    out["d"] = dict(builtin=dict(iterations=r_ref.iterations, error=r_ref.error, s=cb["s"],
+                                 ms_per_iteration=1e3 * cb["s"] / max(1, r_ref.iterations),
+                                 launches=cb["launches"]),
+                    custom=dict(iterations=r_cus.iterations, error=r_cus.error, s=cc["s"],
+                                ms_per_iteration=1e3 * cc["s"] / max(1, r_cus.iterations),
+                                launches=cc["launches"]),
+                    rel_gap=gap, gn_step_rel=step_gap, gn_launches=gn_launches,
+                    bad_pivots=er_d.bad, plain_calls=dict(plain_d))
+    log(f"robust d) the sphere's between factors through custom_factor (forward mode): LM "
+        f"{r_cus.error_history[0]:.9e} -> {r_cus.error:.9e} in {r_cus.iterations} iterations "
+        f"({out['d']['custom']['ms_per_iteration']:.1f} ms an iteration); the built-in batch "
+        f"(analytic Jacobians) -> {r_ref.error:.9e} in {r_ref.iterations} "
+        f"({out['d']['builtin']['ms_per_iteration']:.1f} ms an iteration): rel {gap:.3e} (gate "
+        f"{ROBUST_CUSTOM_GATE}; the built-in linearization drops the chart's Local term); one GN "
+        f"step of the linear containers against the multifrontal step {step_gap:.3e} x its "
+        f"largest entry (gate {ROBUST_STEP_GATE}), launches {gn_launches}; bad pivots {er_d.bad}; "
+        f"plain versions {dict(plain_d)}")
+    if not (abs(gap) <= ROBUST_CUSTOM_GATE and step_gap <= ROBUST_STEP_GATE and er_d.bad == 0
+            and not (dev == "cuda" and plain_d)):
+        raise AssertionError("robust d): the custom / linear-container factors failed their gates")
+    del g_ref, g_cus, g_lc, lg0
+    lap("d")
+
+    # e) the four kernels at every bucket shape of b) and c)
+    cases = sorted(shapes)
+    errs = {}
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        check_kernels(torch, (v2, v1, kernels), cases, {"float64": {}, "float32": {}},
+                      extras=False, errs_out=errs)
+    out["e"] = dict(distinct=len(cases), shapes=cases, max_abs_err=errs)
+    log(f"robust e) {len(cases)} distinct (B, nf, ns, d) shapes of b) and c) (d = "
+        f"{sorted({c[3] for c in cases})}), each kernel against its plain version in float64 and "
+        f"float32: max abs err {errs} ({time.perf_counter() - t0:.1f} s)")
+    lap("e")
+    out["launches"] = launches
+    log(f"robust launches (counters reset before each solve of b)-d), read after): {launches}")
+    if dev == "cuda" and not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"robust: a kernel was never launched on the robust path: {launches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"robust phase: {out['phase_s']:.1f} s (" + ", ".join(
+        f"{k}) {x:.1f} s" for k, x in secs.items()) + ")")
+    return out
+
+
 # --- phase 7: smart-factor bundle adjustment --------------------------------------------
 
 
@@ -3688,6 +4248,7 @@ def main():
     partitioned_only = "--partitioned-only" in sys.argv[1:]
     navigation_only = "--navigation-only" in sys.argv[1:]
     init_only = "--init-only" in sys.argv[1:]
+    robust_only = "--robust-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -3741,6 +4302,12 @@ def main():
             isam2_timed[name].setdefault(ROUTE_KERNEL[b[col]], []).append(b[:3] + (3,))
     log(f"iSAM2 d = 3 buckets ({ISAM2_SHAPES}): {len(isam2_level)} level shapes, "
         f"{len(isam2_wild)} wildfire shapes, {len(isam2_cases)} distinct")
+
+    if robust_only:
+        # phase 14 alone; no result line
+        run_robust(torch, v1)
+        log(f"robust-only run passed in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
 
     if init_only:
         # phase 13 alone; no result line
@@ -4155,9 +4722,14 @@ def main():
     init_res = run_init(torch, v1, here)
     log(f"init phase done at {time.perf_counter() - t_start:.1f} s")
 
+    # 14. the robust and global front end: GNC, Shonan, translation recovery,
+    # custom and linear-container factors
+    robust_res = run_robust(torch, v1)
+    log(f"robust phase done at {time.perf_counter() - t_start:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 14. result lines
+    # 15. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
@@ -4175,7 +4747,8 @@ def main():
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=(launches[kname] + isam2["launches"][kname] + mixed_launches[kname]
                       + family["launches"][kname] + part_res["launches"][kname]
-                      + nav_res["launches"][kname] + init_res["launches"][kname]),
+                      + nav_res["launches"][kname] + init_res["launches"][kname]
+                      + robust_res["launches"][kname]),
             max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
@@ -4191,6 +4764,7 @@ def main():
             launches_navigation_lm=nav_res["b"]["launches"][kname],
             launches_navigation_isam2=nav_res["c"]["launches"][kname],
             launches_init_path=init_res["launches"][kname],
+            launches_robust_path=robust_res["launches"][kname],
             cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname]
             + opt_res["mixed"]["cuda_launches"][kname],
             cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname]
@@ -4207,7 +4781,8 @@ def main():
                                   "isam2": isam2, "isam2_family": family, "smart": smart_res,
                                   "optimizers": opt_res, "plans": plans,
                                   "host_engine": host_res, "partitioned": part_res,
-                                  "navigation": nav_res, "init": init_res}),
+                                  "navigation": nav_res, "init": init_res,
+                                  "robust": robust_res}),
                      allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,14 @@ package and the port (the JAX side keeps its factor data as numpy already):
            "alpha"}), "BetweenFactorEM<Type>" ({"measured": a value of
            <Type>, "R_in", "R_out", "prior_in", "prior_out"}),
            "InvDepthFactor3" ({"uv", "K"}); the value types InvDepthRay5 and
-           Vector9 are [N, 5] and [N, 9]
+           Vector9 are [N, 5] and [N, 9]; or the robust / global front
+           end's: "LinearContainer<T1>_<T2>_<d>", the JAX package's custom
+           linear container (nonlinear/custom.py; params: {"A": tuple of
+           [N, d, dim_k], "b": [N, d], "x0": tuple of values, each in the
+           layout of its type}), "Shonan<p>" ([N, 3, 3] measured rotations)
+           and "ShonanGauge<p>" ([N, p, 3]) on the value type "SOn<p>"
+           ([N, p, p], registered on first use), "TranslationDirection"
+           ([N, 3] unit directions) and "TranslationPrior" ([N, 3])
 
 This is the one place that carries state across: a JAX `Values` / graph,
 or a smart-factor batch, read out as numpy, becomes the port's here.
@@ -44,9 +51,11 @@ from gtsam_petercdev_torch.navigation import ahrs, extra_factors
 from gtsam_petercdev_torch.navigation import factors as nav_factors
 from gtsam_petercdev_torch.navigation.navstate import NavState
 from gtsam_petercdev_torch.navigation.preintegration import PIM
+from gtsam_petercdev_torch.nonlinear import custom
 from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph, row_block
 from gtsam_petercdev_torch.nonlinear.fixed_lag import linear_container_factor
 from gtsam_petercdev_torch.nonlinear.values import Values
+from gtsam_petercdev_torch.sfm import shonan, translation
 from gtsam_petercdev_torch.sfm.bal import SfmCamera
 from gtsam_petercdev_torch.slam import factors, projection, smart, unstable_factors
 from gtsam_petercdev_torch.slam import initialize  # noqa: F401  (registers Vector9)
@@ -86,11 +95,20 @@ _PROJECTION = {
     )
 }
 _EM = "BetweenFactorEM"
+_CUSTOM_CONTAINER = "LinearContainer"  # "LinearContainer[" is the fixed-lag form
+_SFM = {"TranslationDirection": translation._translation_factor,
+        "TranslationPrior": translation._translation_prior}
 
 
 def _layout(type_name: str, params):
     """Value params of a manifold type in the port's layout."""
     return _LAYOUTS[type_name](*params) if type_name in _LAYOUTS else params
+
+
+def _register_son(type_name: str) -> None:
+    """Register an "SOn<p>" value type (SO(p), sfm/shonan.py) on first use."""
+    if type_name.startswith("SOn") and type_name[3:].isdigit():
+        shonan.register_son(int(type_name[3:]))
 
 
 def factor_type(name: str):
@@ -109,6 +127,14 @@ def factor_type(name: str):
     if name.startswith("LinearContainer["):
         inner, dim = name[len("LinearContainer["):].rsplit("]", 1)
         return linear_container_factor(tuple(inner.split(",")), int(dim))
+    if name.startswith(_CUSTOM_CONTAINER):
+        inner, dim = name[len(_CUSTOM_CONTAINER):].rsplit("_", 1)
+        return custom.linear_container_factor(tuple(inner.split("_")), int(dim))
+    for prefix, make in (("ShonanGauge", shonan._gauge_factor), ("Shonan", shonan._shonan_factor)):
+        if name.startswith(prefix) and name[len(prefix):].isdigit():
+            return make(int(name[len(prefix):]))
+    if name in _SFM:
+        return _SFM[name]()
     return factors.factor_type(name)
 
 
@@ -118,6 +144,7 @@ def values_from_arrays(
     """Values on `device` in `dtype` (default float64) from numpy arrays."""
     values = Values(device=device, dtype=dtype)
     for t, (keys, params) in arrays.items():
+        _register_son(t)
         values.insert_batch(np.asarray(keys), t, _layout(t, params))
     return values
 
@@ -135,6 +162,9 @@ def graph_from_arrays(
         if name.startswith("LinearContainer["):
             x0s, sqrtH, rhs = params
             params = (tuple(_layout(t, x0) for t, x0 in zip(ft.var_types, x0s)), sqrtH, rhs)
+        elif name.startswith(_CUSTOM_CONTAINER):
+            params = {"A": tuple(params["A"]), "b": params["b"],
+                      "x0": tuple(_layout(t, x0) for t, x0 in zip(ft.var_types, params["x0"]))}
         elif name in _PARAM_LAYOUTS:
             params = _PARAM_LAYOUTS[name](params)
         elif name.startswith(_EM):
@@ -173,3 +203,28 @@ def smart_batch_from_arrays(
         params or smart.SmartProjectionParams(),
         None if cal_rows is None else np.asarray(cal_rows, dtype=np.int32),
         stereo=stereo)
+
+
+def shonan_measurements(i, j, R, kappa, *, device: DeviceLike = "cuda", dtype=None):
+    """The port's ShonanMeasurements from numpy arrays (edges i, j [E], R
+    [E, 3, 3], kappa [E]); R and kappa go to `device` in `dtype` (default
+    float64)."""
+    dev, dt = resolve_device(device), resolve_dtype(dtype)
+    return shonan.ShonanMeasurements(
+        np.asarray(i, dtype=np.int64), np.asarray(j, dtype=np.int64),
+        torch.as_tensor(np.asarray(R, dtype=np.float64)).to(dev, dt),
+        torch.as_tensor(np.asarray(kappa, dtype=np.float64)).to(dev, dt))
+
+
+def gnc_known_inliers(masks: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:
+    """GncParams.known_inliers from numpy masks: batch index -> bool [N]
+    (the batch order is the graph's staging order, as in the JAX package)."""
+    return {int(i): np.asarray(m, dtype=bool) for i, m in masks.items()}
+
+
+def gnc_weights(weights, *, device: DeviceLike = "cuda", dtype=None):
+    """GNC weights (one [N] array per factor batch, a JAX GncResult's
+    `weights` read out with np.asarray) as tensors on `device` in `dtype`
+    (default float64)."""
+    dev, dt = resolve_device(device), resolve_dtype(dtype)
+    return [torch.as_tensor(np.asarray(w, dtype=np.float64)).to(dev, dt) for w in weights]

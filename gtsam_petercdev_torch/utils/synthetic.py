@@ -1,6 +1,8 @@
 """Synthetic graphs: Pose3 rings with the topology of the sphere benchmark,
-a City10000-like Pose2 stream (`city_stream`) and an IMU + GPS drive
-(`imu_gps_drive`).
+a City10000-like Pose2 stream (`city_stream`), an IMU + GPS drive
+(`imu_gps_drive`), the scenes of the unstable factors and the camera
+factors, and those of the robust and global front end (`ring_rotations`,
+`sphere_directions`).
 
 `sphere_rings(n_rings, n_per_ring)` places n_rings x n_per_ring poses on
 latitude rings of a sphere, facing along each ring. Factors:
@@ -442,3 +444,58 @@ def inv_depth_scene(n_poses: int = 200, n_landmarks: int = 5_000, n_obs: int = 4
          np.broadcast_to(np.eye(2), (M, 2, 2)).copy()),
     ]
     return values, factors, {"R": R, "t": t, "points": pts}
+
+
+# --- scenes of the robust and global front end --------------------------------
+
+
+def ring_rotations(n: int = 10, noise_sigma: float = 0.0, seed: int = 0):
+    """A rotation-averaging ring, the JAX package's Shonan tests' scene: n
+    true rotations Exp(N(0, 0.8^2 I)), an edge (a, b) for each b - a in
+    1..3, the measurement R_a^T R_b composed with Exp(N(0, noise_sigma^2 I))
+    when noise_sigma > 0 (drawn edge by edge, after the rotations, from one
+    numpy seed).
+
+    Returns (i [E], j [E], R [E, 3, 3], kappa [E] (ones), R_true [n, 3, 3]),
+    float64 numpy (`convert.shonan_measurements` carries them across)."""
+    rng = np.random.default_rng(seed)
+    R_gt = so3.expmap(torch.from_numpy(rng.normal(size=(n, 3)) * 0.8))
+    iis, jjs, Rs = [], [], []
+    for a in range(n):
+        for b in range(a + 1, min(a + 4, n)):
+            iis.append(a)
+            jjs.append(b)
+            Rij = so3.between(R_gt[a], R_gt[b])
+            if noise_sigma > 0:
+                Rij = so3.compose(Rij, so3.expmap(torch.from_numpy(rng.normal(size=3) * noise_sigma)))
+            Rs.append(Rij.numpy())
+    return (np.array(iis), np.array(jjs), np.stack(Rs), np.ones(len(iis)), R_gt.numpy())
+
+
+# the translation-recovery scene: each direction rotated by Exp(xi), xi ~
+# N(0, DIRECTION_SIGMA^2 I) (rad), then REVERSED_SHARE of them reversed
+DIRECTION_SIGMA = 0.01
+REVERSED_SHARE = 0.05
+
+
+def sphere_directions(n_rings: int = 50, n_per_ring: int = 50, seed: int = 0,
+                      sigma: float = DIRECTION_SIGMA, share: float = REVERSED_SHARE):
+    """World-frame unit directions t_j - t_i of `sphere_truth`'s positions
+    over `sphere_rings`' edges (odometry, then ring to ring), each rotated by
+    a small random rotation (sigma rad), then `share` of them reversed: the
+    outliers of translation recovery (MFAS). From one numpy seed.
+
+    Returns (edges [E, 2], directions [E, 3], t_true [n, 3], reversed
+    indices), float64 numpy."""
+    rng = np.random.default_rng(seed)
+    n = n_rings * n_per_ring
+    _, pos = sphere_truth(n_rings, n_per_ring)
+    a = np.concatenate([np.arange(n - 1), np.arange(n - n_per_ring)])
+    b = np.concatenate([np.arange(1, n), np.arange(n_per_ring, n)])
+    d = pos[b] - pos[a]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    Rn = so3.expmap(torch.from_numpy(rng.normal(size=(len(a), 3)) * sigma)).numpy()
+    d = np.einsum("eij,ej->ei", Rn, d)
+    flipped = np.sort(rng.choice(len(a), size=int(round(share * len(a))), replace=False))
+    d[flipped] *= -1.0
+    return np.stack([a, b], axis=1), d, pos, flipped

@@ -3,8 +3,8 @@
 
     python3 tools/imu_isam2_reference.py
         chip_smoke.py phase 12 c)'s loop: the 1,000-keyframe drive at 200 Hz
-        (seed 0), ISAM2 over its first 300 keyframes; writes
-        tests/data/imu_isam2_reference.json (about 10 minutes, ~2 GB)
+        (seed 0), ISAM2 over its first 150 keyframes; writes
+        tests/data/imu_isam2_reference.json (a few minutes, ~2 GB)
     python3 tools/imu_isam2_reference.py --drive 20 --keyframes 20 --rate 50 \\
         [--default-bias-walk] [--out PATH]
         another drive; prints, and writes only where --out is given
@@ -162,13 +162,13 @@ def batch_optimum(port_graph, va, fa, n):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--drive", type=int, default=1000, help="the drive's keyframes")
-    ap.add_argument("--keyframes", type=int, default=300, help="ISAM2 over the first N")
+    ap.add_argument("--keyframes", type=int, default=150, help="ISAM2 over the first N")
     ap.add_argument("--rate", type=int, default=200, help="IMU Hz")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--default-bias-walk", action="store_true")
     ap.add_argument("--out", default=None, help=f"JSON file (default {OUT} at the defaults)")
     a = ap.parse_args()
-    defaults = (a.drive, a.keyframes, a.rate, a.seed, a.default_bias_walk) == (1000, 300, 200, 0, False)
+    defaults = (a.drive, a.keyframes, a.rate, a.seed, a.default_bias_walk) == (1000, 150, 200, 0, False)
     out = a.out or (OUT if defaults else None)
     torch.set_num_threads(1)
     n = a.keyframes
