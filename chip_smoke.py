@@ -20,6 +20,7 @@
     python3 chip_smoke.py --navigation-only  phases 1-2, then phase 12; no result line
     python3 chip_smoke.py --init-only     phases 1-2, then phase 13; no result line
     python3 chip_smoke.py --robust-only   phases 1-2, then phase 14; no result line
+    python3 chip_smoke.py --geometry-only phases 1-2, then phase 15; no result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -254,7 +255,35 @@ a result line:
              step of their linear containers against the multifrontal step
              (1e-8); e) K4 / K3 / K1 / K2 against their plain versions at
              every shape b) and c) gave them, float64 and float32
- 15. result  a `kernels` JSON line, the card line, then the last line
+ 15. geometry  the extended geometry, float64, after phase 14: a) planar
+             landmark SLAM (utils/synthetic.planar_slam: city_stream(3687)'s
+             Pose2 walk at City10000's odometry sigmas, 920 of 1,000 Point2
+             landmarks seen, bearing-range / range / bearing factors; d = 3);
+             b) sim3_sphere(50, 50) (2,500 Sim3 values, 4,949 BetweenSim3 and a
+             prior; d = 7); c) plane_slam(1000, 60) (1,000 Pose3 keyframes room
+             to room, 60 OrientedPlane3 landmarks, 6,000 OrientedPlane3Factors,
+             a direction prior a plane; d = 6); d) two_view_pairs(1000, 100)
+             (1,000 EssentialMatrix values, 100,000 EssentialMatrixFactors, one
+             level of K4 leaves; d = 5): each through LM multifrontal, its plan
+             line, LM iterations, ms an iteration, an LM step's device busy
+             share, launches, bad pivots, ATE / epipolar / rotation gates, and
+             card = CPU on a cut (LM histories rel 1e-9); e) the other factor
+             types (Frobenius, Karcher mean, pose rotation / translation
+             priors, rotate, rotate directions, essential-matrix constraint,
+             reference frame, planar projection, range and bearing in 3-D) on
+             10-50-variable graphs card = CPU, an anti-factor's exact
+             cancellation (dense H, g and the multifrontal step), the spherical
+             camera, fundamental, Sim2 and SO(n) functions card = CPU (1e-12);
+             f) augmented_lagrangian_optimize and penalty_optimize on phase
+             4's sphere with 2,500 constraints ||t_i|| = r (inner LM
+             multifrontal): outer and inner iterations, the violation, the ms
+             of each part, AL card = CPU on a cut; FitBasis and an
+             evaluation-factor graph (Chebyshev2, N = 32) on the drive's
+             199,800 positions at 200 Hz, card = CPU on every 10th sample;
+             one host solve_qp and solve_lp timed; g) K4 / K3 / K1 / K2 against their plain versions
+             at every bucket shape a)-f) gave them (d = 3, 5, 6, 7), float64
+             within 1e-14
+ 16. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -517,6 +546,44 @@ ROBUST_STEP_GATE = 1e-8
 # phase 13 e1)'s ATE on sphere_rings_outliers(50, 50) on an H100 (PERF.md,
 # section 6): with BetweenFactorEMPose3, and with plain factors
 EM_ATE, PLAIN_ATE = 0.265666, 1.067634
+
+# phase 15 (the extended geometry, float64, seed SEED), scenes from
+# utils/synthetic: a) planar_slam(*GEO_PLANAR) (poses, landmarks); b)
+# sim3_sphere(*GEO_SIM3); c) plane_slam(*GEO_PLANE) (keyframes, planes); d)
+# two_view_pairs(*GEO_TWO_VIEW) (pairs, correspondences); each through LM
+# multifrontal (at most GEO_LM_ITERS iterations) and card = CPU on its cut
+# (GEO_*_CUT, at most GEO_CUT_ITERS iterations; LM histories rel
+# GEO_CPU_GATE); e) extra_factor_scenes's graphs card = CPU (their
+# histories within GEO_CPU_GATE of the start's error: noise-free, they fall
+# to ~1e-25); f) the
+# sphere's Pose3 graph with one ||t_i|| = radius constraint a pose through
+# augmented_lagrangian_optimize and penalty_optimize (inner LM multifrontal,
+# at most GEO_INNER_ITERS iterations; gate: each one's final violation at
+# most GEO_VIOLATION_DROP x its start's), AL card = CPU on
+# sphere_rings(GEO_CONSTRAINT_CUT); FitBasis and a graph of
+# evaluation_factors (Chebyshev2, GEO_BASIS_N) on drive_positions(
+# *GEO_BASIS_DRIVE), card = CPU on every GEO_BASIS_CUT-th sample; g) the
+# kernels at every bucket shape of
+# a)-f), f64 max abs difference <= GEO_KERNEL_GATE
+GEO_PLANAR = (3687, 1000)
+GEO_PLANAR_CUT = (200, 60)
+GEO_SIM3 = (N_RINGS, N_PER_RING)
+GEO_SIM3_CUT = (10, 10)
+GEO_PLANE = (1000, 60)
+GEO_PLANE_CUT = (60, 12)
+GEO_TWO_VIEW = (1000, 100)
+GEO_TWO_VIEW_CUT = (20, 100)
+GEO_LM_ITERS = 10
+GEO_CUT_ITERS = 5
+GEO_CPU_GATE = 1e-9
+GEO_CONSTRAINT_SPHERE = (N_RINGS, N_PER_RING)
+GEO_CONSTRAINT_CUT = (5, 6)
+GEO_INNER_ITERS = 10
+GEO_VIOLATION_DROP = 1e-3
+GEO_BASIS_DRIVE = (1000, 200)
+GEO_BASIS_N = 32
+GEO_BASIS_CUT = 10
+GEO_KERNEL_GATE = 1e-14
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
@@ -2459,8 +2526,9 @@ def run_navigation(torch, v1, dev="cuda"):
     lg0 = g.linearize(v)
     plan, maps = elimination._graph_plan(g, lg0)
     n_vars = len(v)
-    edges = np.concatenate([np.stack([s.gids[a], s.gids[b]], axis=1) for s in structure
-                            for a in range(len(s.gids)) for b in range(a + 1, len(s.gids))])
+    edges = np.concatenate([np.zeros((0, 2), dtype=np.int64)]
+                           + [np.stack([s.gids[a], s.gids[b]], axis=1) for s in structure
+                              for a in range(len(s.gids)) for b in range(a + 1, len(s.gids))])
     cands = symbolic.ordering_candidates(n_vars, edges)
     F = {name: 36 * (f - 1) + 1 for name, _, f in cands}
     best = min(cands, key=lambda c: c[2])
@@ -2816,8 +2884,9 @@ def plan_line(elimination, symbolic, graph, values, label):
     structure = elimination.graph_structure(graph, values)
     lg0 = graph.linearize(values)
     t0 = time.perf_counter()
-    edges = np.concatenate([np.stack([s.gids[a], s.gids[b]], axis=1) for s in structure
-                            for a in range(len(s.gids)) for b in range(a + 1, len(s.gids))])
+    edges = np.concatenate([np.zeros((0, 2), dtype=np.int64)]
+                           + [np.stack([s.gids[a], s.gids[b]], axis=1) for s in structure
+                              for a in range(len(s.gids)) for b in range(a + 1, len(s.gids))])
     cands = symbolic.ordering_candidates(len(values), edges)
     best = min(cands, key=lambda c: c[2])
     # the optimizer's plan on best_ordering's choice, its candidates made once
@@ -3858,6 +3927,432 @@ def run_robust(torch, v1, dev="cuda"):
     return out
 
 
+# --- phase 15: the extended geometry, constrained optimization, bases -------------------
+
+
+def radius_constraint(xs, r):
+    """||t|| - r of a Pose3 batch: phase 15 f)'s constraint (one g for all)."""
+    t = xs[0].t
+    return (t * t).sum(dim=-1, keepdim=True).sqrt() - r[..., None]
+
+
+def run_geometry(torch, v1, dev="cuda"):
+    """Phase 15 (float64): a) planar landmark SLAM; b) a Sim3 pose graph; c)
+    plane SLAM; d) two-view essential matrices; e) the other factor types
+    and the geometry extras, small, card = CPU; f) augmented Lagrangian and
+    penalty on the constrained sphere, the basis fits and the host QP / LP;
+    g) the four kernels at every bucket shape a)-f) gave them."""
+    import numpy as np
+
+    from gtsam_petercdev_torch import basis, constrained
+    from gtsam_petercdev_torch.constrained import constrained as con_mod
+    from gtsam_petercdev_torch.constrained import qp
+    from gtsam_petercdev_torch.geometry import essential, extra, pose3, so3, unit3
+    from gtsam_petercdev_torch.inference import elimination, kernels, symbolic
+    from gtsam_petercdev_torch.linear import solve as linsolve
+    from gtsam_petercdev_torch.nonlinear import optimizers
+    from gtsam_petercdev_torch.nonlinear.optimizers import LMParams, OptimizerParams
+    from gtsam_petercdev_torch.ops import cholesky_v2 as v2
+    from gtsam_petercdev_torch.slam import extra_factors, factors
+    from gtsam_petercdev_torch.utils import convert, synthetic
+
+    out, secs, launches = {}, {}, {k: 0 for k in KERNELS}
+    shapes = set()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = t_sub = time.perf_counter()
+
+    def add_launches(counts):
+        for k, x in counts.items():
+            launches[k] += x
+
+    def lap(key):
+        nonlocal t_sub
+        secs[key] = time.perf_counter() - t_sub
+        t_sub = time.perf_counter()
+
+    def hist_gap(a, b, to_start=False):
+        """Largest relative gap of two LM error histories, entry by entry
+        (atol 1e-12), or relative to the start's error (to_start: e)'s
+        noise-free graphs fall 1e5x a step, so a later entry is mostly
+        cancellation)."""
+        if len(a) != len(b):
+            return float("inf")
+        return max(abs(x - y) / (abs(b[0]) if to_start else max(abs(y), 1e-12 / GEO_CPU_GATE))
+                   for x, y in zip(a, b))
+
+    def cut_gate(va, fa, what, iters=GEO_CUT_ITERS, solver="multifrontal", to_start=False):
+        """The same LM on the card and on the CPU: (gap of the histories, the
+        card's history); no plain version may run on the card."""
+        hs = {}
+        for d_ in dict.fromkeys((dev, "cpu")):
+            with counting_plain() as plain:
+                r_ = optimizers.levenberg_marquardt(
+                    convert.graph_from_arrays(fa, device=d_),
+                    convert.values_from_arrays(va, device=d_),
+                    LMParams(solver=solver, max_iterations=iters), device=d_)
+            hs[d_] = r_.error_history
+            if d_ == "cuda" and plain:
+                raise AssertionError(f"geometry {what}: a plain version ran on the card: {plain}")
+        gap = hist_gap(hs[dev], hs["cpu"], to_start)
+        if not gap <= GEO_CPU_GATE:
+            raise AssertionError(f"geometry {what}: card and CPU LM histories part by {gap:.3e}: "
+                                 f"{hs[dev]} / {hs['cpu']}")
+        return gap, hs[dev]
+
+    def solve_scene(key, label, va, fa):
+        """The scene's LM (multifrontal, plan line first), an LM step's device
+        busy share, launches, bad pivots, plain calls."""
+        g = convert.graph_from_arrays(fa, device=dev)
+        v = convert.values_from_arrays(va, device=dev)
+        maps, plan = plan_line(elimination, symbolic, g, v, f"geometry {key}) {label}")
+        sizes = {t: len(v.type_keys(t)) for t in v.types()}
+        nf = {b.ftype.name: b.size for b in g.batches}
+        with LMRecorder(v1, sync) as rec, counting_plain() as plain, EliminationRecorder() as er:
+            r = optimizers.levenberg_marquardt(
+                g, v, LMParams(solver="multifrontal", max_iterations=GEO_LM_ITERS), device=dev)
+        shapes.update(er.shapes)
+        call = rec.calls[0]
+        add_launches(call["launches"])
+        kinds = [k for _, k in call["trials"]]
+
+        def step(vals):
+            return vals.retract(elimination.solve_linearized(g, vals, 1e-5)[0])
+
+        busy = wall = steps = None
+        if dev == "cuda":
+            prof = profile_step(torch, step, r.values, top=5, reps=1, host=False)
+            sync()
+            t0 = time.perf_counter()
+            step(r.values)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            if prof:
+                busy, steps = prof[0], prof[1]
+        res = dict(sizes=sizes, factors=nf, plan=plan, iterations=r.iterations,
+                   error=[r.error_history[0], r.error], s=call["s"],
+                   ms_per_iteration=1e3 * call["s"] / max(1, r.iterations), trials=len(kinds),
+                   bad_pivot_trials=kinds.count("bad"), launches=call["launches"],
+                   step_wall_ms=wall, step_device_busy_ms=busy, step_kernels=steps,
+                   busy_share=(busy / wall) if (busy and wall) else None,
+                   bad_pivots=er.bad, plain_calls=dict(plain))
+        log(f"geometry {key}) {label}: sizes {sizes}, factors {nf}; LM {r.error_history[0]:.6e} -> "
+            f"{r.error:.6e} in {r.iterations} iterations ({call['s']:.2f} s, "
+            f"{res['ms_per_iteration']:.1f} ms an iteration, {len(kinds)} trials, "
+            f"{res['bad_pivot_trials']} with bad pivots); launches {call['launches']}; "
+            + (f"an LM step {wall:.1f} ms wall, device busy {busy:.3f} ms ({steps} kernels, "
+               f"{100 * res['busy_share']:.1f}%); " if busy and wall else "")
+            + f"bad pivots {er.bad}; plain versions {dict(plain)}")
+        check_result(r, f"geometry {key}) LM")
+        if dev == "cuda" and plain:
+            raise AssertionError(f"geometry {key}): a plain version ran on the card: {dict(plain)}")
+        return r, res
+
+    # a) planar landmark SLAM (d = 3)
+    va, fa, truth = synthetic.planar_slam(*GEO_PLANAR, seed=SEED)
+    r, res = solve_scene("a", f"planar_slam{GEO_PLANAR}", va, fa)
+    lm_keys = np.asarray(r.values.type_keys("Point2"))
+    lm_est = r.values.params("Point2").cpu().numpy()[np.argsort(lm_keys)]
+    lm_true = truth["landmarks"][np.argsort(truth["landmark_keys"])]
+    res["ate_poses"] = pose2_ate(r.values, truth["poses"])
+    res["ate_start"] = pose2_ate(convert.values_from_arrays(va, device="cpu"), truth["poses"])
+    res["landmark_rmse"] = float(np.sqrt(np.mean(np.sum((lm_est - lm_true) ** 2, axis=1))))
+    va_c, fa_c, _ = synthetic.planar_slam(*GEO_PLANAR_CUT, seed=SEED)
+    res["cut"], res["cut_gap"] = GEO_PLANAR_CUT, cut_gate(va_c, fa_c, "a)")[0]
+    out["a"] = res
+    log(f"geometry a) ATE {res['ate_poses']:.6f} m (start {res['ate_start']:.6f} m), landmarks "
+        f"RMSE {res['landmark_rmse']:.6f} m; planar_slam{GEO_PLANAR_CUT} card = CPU, LM histories "
+        f"{res['cut_gap']:.3e} (gate {GEO_CPU_GATE})")
+    if not res["ate_poses"] < res["ate_start"]:
+        raise AssertionError("geometry a): the ATE did not fall")
+    del r
+    lap("a")
+
+    # b) a Sim3 pose graph (d = 7)
+    va, fa = synthetic.sim3_sphere(*GEO_SIM3, seed=SEED)
+    r, res = solve_scene("b", f"sim3_sphere{GEO_SIM3}", va, fa)
+    s_est = r.values.params("Sim3").s.cpu().numpy()
+    res["scale_range"] = [float(s_est.min()), float(s_est.max())]
+    va_c, fa_c = synthetic.sim3_sphere(*GEO_SIM3_CUT, seed=SEED)
+    res["cut"], res["cut_gap"] = GEO_SIM3_CUT, cut_gate(va_c, fa_c, "b)")[0]
+    out["b"] = res
+    log(f"geometry b) scales {res['scale_range'][0]:.6f} .. {res['scale_range'][1]:.6f}; "
+        f"sim3_sphere{GEO_SIM3_CUT} card = CPU {res['cut_gap']:.3e}")
+    del r
+    lap("b")
+
+    # c) plane SLAM (d = 6)
+    va, fa, truth = synthetic.plane_slam(*GEO_PLANE, seed=SEED)
+    r, res = solve_scene("c", f"plane_slam{GEO_PLANE}", va, fa)
+    res["ate"] = pose3_ate(r.values, truth["t"])
+    res["ate_start"] = pose3_ate(convert.values_from_arrays(va, device="cpu"), truth["t"])
+    # dead reckoning: the odometry composed from keyframe 0's true pose
+    (odo_R, odo_t) = fa[1][2]
+    P = pose3.Pose3(torch.as_tensor(truth["R"][:1]), torch.as_tensor(truth["t"][:1]))
+    t_dr = [P.t]
+    for i in range(len(odo_R)):
+        P = pose3.compose(P, pose3.Pose3(torch.as_tensor(odo_R[i:i + 1]),
+                                         torch.as_tensor(odo_t[i:i + 1])))
+        t_dr.append(P.t)
+    d_dr = torch.cat(t_dr).numpy() - truth["t"]
+    res["ate_dead_reckoning"] = float(np.sqrt(np.mean(np.sum(d_dr * d_dr, axis=1))))
+    pn = r.values.params("OrientedPlane3").n.cpu().numpy()
+    res["plane_normal_max_rad"] = float(np.arccos(np.clip(np.sum(pn * truth["n"], axis=1), -1, 1)).max())
+    va_c, fa_c, _ = synthetic.plane_slam(*GEO_PLANE_CUT, seed=SEED)
+    res["cut"], res["cut_gap"] = GEO_PLANE_CUT, cut_gate(va_c, fa_c, "c)")[0]
+    out["c"] = res
+    log(f"geometry c) ATE {res['ate']:.6f} m (dead reckoning {res['ate_dead_reckoning']:.6f}; the "
+        f"start, the truth perturbed, {res['ate_start']:.6f}), plane normals within "
+        f"{res['plane_normal_max_rad']:.3e} rad; plane_slam{GEO_PLANE_CUT} card = CPU "
+        f"{res['cut_gap']:.3e}")
+    if not res["ate"] < res["ate_dead_reckoning"]:
+        raise AssertionError("geometry c): the ATE is not below dead reckoning's")
+    del r
+    lap("c")
+
+    # d) two-view relative poses (d = 5)
+    va, fa, truth = synthetic.two_view_pairs(*GEO_TWO_VIEW, seed=SEED)
+    r, res = solve_scene("d", f"two_view_pairs{GEO_TWO_VIEW}", va, fa)
+    E = r.values.params("EssentialMatrix")
+    Rt = torch.as_tensor(truth["R"]).to(dev)
+    ang = torch.linalg.norm(so3.logmap(Rt.transpose(-1, -2) @ E.R), dim=-1).cpu().numpy()
+    ang0 = torch.linalg.norm(so3.logmap(Rt.transpose(-1, -2) @ torch.as_tensor(
+        va["EssentialMatrix"][1][0]).to(dev)), dim=-1).cpu().numpy()
+    res["rotation_err_rms_rad"] = [float(np.sqrt(np.mean(ang0 ** 2))), float(np.sqrt(np.mean(ang ** 2)))]
+    tcos = torch.sum(E.t * torch.as_tensor(truth["t"]).to(dev), dim=-1).abs().cpu().numpy()
+    pA = torch.as_tensor(fa[0][2]["pA"]).to(dev)
+    pB = torch.as_tensor(fa[0][2]["pB"]).to(dev)
+    rows = torch.as_tensor(np.repeat(np.arange(GEO_TWO_VIEW[0]), GEO_TWO_VIEW[1])).to(dev)
+    epi = essential.epipolar_error(essential.EssentialMatrix(E.R[rows], E.t[rows]), pA, pB)
+    res["epipolar_rms"] = float(torch.sqrt(torch.mean(epi * epi)))
+    res["rotation_err_max_rad"] = float(ang.max())
+    res["direction_err_max_rad"] = float(np.arccos(np.clip(tcos, -1, 1)).max())
+    va_c, fa_c, _ = synthetic.two_view_pairs(*GEO_TWO_VIEW_CUT, seed=SEED)
+    res["cut"], res["cut_gap"] = GEO_TWO_VIEW_CUT, cut_gate(va_c, fa_c, "d)")[0]
+    out["d"] = res
+    log(f"geometry d) epipolar residual RMS {res['epipolar_rms']:.3e} (pixel noise "
+        f"{synthetic.TWO_VIEW_PIXEL} on normalized coordinates); rotation error RMS "
+        f"{res['rotation_err_rms_rad'][0]:.3e} -> {res['rotation_err_rms_rad'][1]:.3e} rad, max "
+        f"{res['rotation_err_max_rad']:.3e} rad, direction max {res['direction_err_max_rad']:.3e} "
+        f"rad; two_view_pairs{GEO_TWO_VIEW_CUT} card = CPU {res['cut_gap']:.3e}")
+    if not (res["epipolar_rms"] < 10 * synthetic.TWO_VIEW_PIXEL
+            and res["rotation_err_rms_rad"][1] < res["rotation_err_rms_rad"][0]):
+        raise AssertionError("geometry d): the two-view refinement missed its gates")
+    del r, E
+    lap("d")
+
+    # e) the other factor types, the anti-factor and the geometry extras
+    scenes = {}
+    with EliminationRecorder() as er_e:
+        for name, (va, fa) in synthetic.extra_factor_scenes(SEED).items():
+            t0 = time.perf_counter()
+            v1.reset_launch_counts()
+            gap, hist = cut_gate(va, fa, f"e) {name}", iters=GEO_LM_ITERS, to_start=True)
+            add_launches(v1.launch_counts())
+            scenes[name] = dict(history=[hist[0], hist[-1]], iterations=len(hist) - 1, gap=gap,
+                                s=time.perf_counter() - t0)
+            if not hist[-1] <= 1e-6 * hist[0]:
+                raise AssertionError(f"geometry e) {name}: LM did not reach the truth: {hist}")
+        # the anti-factor: a between factor and its anti-factor cancel exactly
+        anti = {}
+        for d_ in dict.fromkeys((dev, "cpu")):
+            vals = convert.values_from_arrays({"Pose2": (np.arange(2), np.array(
+                [[0.0, 0.0, 0.0], [1.1, 0.1, 0.05]]))}, device=d_)
+            g1, g2 = (convert.graph_from_arrays(
+                [("PriorPose2", np.array([[0], [1]]), np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]]),
+                  np.stack([np.eye(3) / 0.1, np.eye(3) / 0.5]))], device=d_) for _ in range(2))
+            meas = torch.tensor([[1.0, 0.0, 0.0]], dtype=torch.float64)
+            bf = factors.between_factor("Pose2")
+            g2.add_batch(bf, [[0, 1]], meas, np.eye(3)[None] / 0.2)
+            g2.add_batch(extra_factors.anti_factor(bf), [[0, 1]], meas, np.eye(3)[None] / 0.2, sign=-1.0)
+            H1, gg1 = linsolve.assemble_dense(g1.linearize(vals))
+            H2, gg2 = linsolve.assemble_dense(g2.linearize(vals))
+            with counting_plain() as plain_anti:
+                x1 = elimination.solve_linearized(g1, vals, 1e-3)[0]["Pose2"]
+                x2 = elimination.solve_linearized(g2, vals, 1e-3)[0]["Pose2"]
+            if d_ == "cuda" and plain_anti:
+                raise AssertionError(f"geometry e): a plain version ran on the card: {plain_anti}")
+            anti[d_] = dict(H=(H1 - H2).abs().max().item(), g=(gg1 - gg2).abs().max().item(),
+                            step=(x1 - x2).abs().max().item())
+        # the geometry extras on a batch, card against CPU
+        rng = np.random.default_rng(SEED)
+        pose_np = (rng.normal(size=(64, 6)) * 0.5)
+        pts_np = rng.normal(size=(64, 3)) * 3 + np.array([0, 0, 6.0])
+        xi4, xi5 = rng.normal(size=(64, 6)) * 0.4, rng.normal(size=(64, 10)) * 0.4
+        K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+        ex = {}
+        for d_ in dict.fromkeys((dev, "cpu")):
+            T = lambda a: torch.as_tensor(a).to(d_)
+            P = pose3.expmap(T(pose_np))
+            b = extra.spherical_project(P, T(pts_np))
+            Eb = essential.essential_matrix(essential.EssentialMatrix(P.R, unit3.normalize(P.t)))
+            F = extra.fundamental_from_essential(T(K).expand(64, 3, 3), Eb, T(K).expand(64, 3, 3))
+            U, sv, V = extra.fundamental_params(F)
+            g_ = extra.sim2(0.4, [1.0, -2.0], 1.5, device=d_)
+            R4, R5 = extra.son_expmap(T(xi4), 4), extra.son_expmap(T(xi5), 5)
+            ex[d_] = [b, extra.spherical_reprojection_error(P, T(pts_np), unit3.normalize(b + 0.01)),
+                      extra.fundamental_matrix(U, sv, V),  # free of the SVD's signs
+                      extra.sim2_transform_from(extra.sim2_compose(g_, extra.sim2_inverse(g_)),
+                                                T(pts_np[:, :2])),
+                      R4, extra.son_logmap(R4, 4), R5, extra.son_logmap(R5, 5)]
+    shapes.update(er_e.shapes)
+    ex_gap = max((a.cpu() - b_.cpu()).abs().max().item() for a, b_ in zip(ex[dev], ex["cpu"]))
+    out["e"] = dict(scenes=scenes, anti=anti, extras_abs=ex_gap, bad_pivots=er_e.bad)
+    log("geometry e) " + "; ".join(
+        f"{k} {v['iterations']} LM iterations {v['history'][0]:.3e} -> {v['history'][1]:.3e} "
+        f"(card = CPU {v['gap']:.1e}, {v['s']:.2f} s)" for k, v in scenes.items())
+        + f"; anti-factor: |H - H'| {anti[dev]['H']:.1e}, |g - g'| {anti[dev]['g']:.1e}, the "
+          f"multifrontal steps {anti[dev]['step']:.1e}; spherical / fundamental / Sim2 / SO(4), "
+          f"SO(5) card against CPU {ex_gap:.3e} (gate 1e-12); bad pivots {er_e.bad}; no plain "
+          f"version on the card")
+    if not (max(anti[dev].values()) <= 1e-12 and ex_gap <= 1e-12):
+        raise AssertionError("geometry e): the anti-factor or the geometry extras missed a gate")
+    lap("e")
+
+    # f) constrained optimization on the sphere; the basis fits; the host QP / LP
+    def constrained_run(shape, device, method):
+        va, fa = synthetic.sphere_rings(*shape, seed=SEED)
+        g = convert.graph_from_arrays(fa, device=device)
+        v = convert.values_from_arrays(va, device=device)
+        radius = shape[1] / (2.0 * np.pi)
+        cons = [constrained.EqualityConstraint("radius", ("Pose3",), 1, radius_constraint, [int(k)],
+                                               radius) for k in va["Pose3"][0]]
+        params = constrained.PenaltyParams(
+            inner=LMParams(solver="multifrontal", max_iterations=GEO_INNER_ITERS))
+        groups = con_mod._groups(cons, g)
+        viol0 = con_mod._violation(groups, con_mod._constraint_values(groups, v))
+        t0 = time.perf_counter()
+        r = getattr(constrained, method)(g, cons, v, params, device=device)
+        sync()
+        s = time.perf_counter() - t0
+        viol = con_mod._violation(groups, con_mod._constraint_values(groups, r.values))
+        return r, s, viol0, viol
+
+    runs = {}
+    with counting_plain() as plain_f, EliminationRecorder() as er_f:
+        for method in ("augmented_lagrangian_optimize", "penalty_optimize"):
+            with LMRecorder(v1, sync) as rec:
+                r, s, viol0, viol = constrained_run(GEO_CONSTRAINT_SPHERE, dev, method)
+            for c in rec.calls:
+                add_launches(c["launches"])
+            lm_s = sum(c["s"] for c in rec.calls)
+            runs[method] = dict(outer=len(rec.calls),
+                                inner=[c["result"].iterations for c in rec.calls],
+                                violation=[viol0, viol], error=r.error, s=s, lm_s=lm_s,
+                                other_s=s - lm_s,
+                                ms_per_inner=1e3 * lm_s / max(1, sum(c["result"].iterations
+                                                                     for c in rec.calls)))
+            log(f"geometry f) {method} on sphere_rings{GEO_CONSTRAINT_SPHERE} with "
+                f"{GEO_CONSTRAINT_SPHERE[0] * GEO_CONSTRAINT_SPHERE[1]} constraints ||t_i|| = r: "
+                f"{len(rec.calls)} outer iterations, inner LM iterations "
+                f"{runs[method]['inner']}, violation {viol0:.3e} -> {viol:.3e}, error {r.error:.6e}; "
+                f"{s:.2f} s ({lm_s:.2f} s inner LM, {runs[method]['ms_per_inner']:.1f} ms an inner "
+                f"iteration; {s - lm_s:.2f} s staging and violation reads)")
+    al_cut = {}
+    with EliminationRecorder() as er_fc:
+        for d_ in dict.fromkeys((dev, "cpu")):
+            r_c = constrained_run(GEO_CONSTRAINT_CUT, d_, "augmented_lagrangian_optimize")[0]
+            al_cut[d_] = r_c.values.params("Pose3").t.cpu()
+    shapes.update(er_f.shapes | er_fc.shapes)
+    al_gap = (al_cut[dev] - al_cut["cpu"]).abs().max().item()
+    al, pen = runs["augmented_lagrangian_optimize"], runs["penalty_optimize"]
+    log(f"geometry f) AL on sphere_rings{GEO_CONSTRAINT_CUT} card = CPU {al_gap:.3e} (gate "
+        f"{GEO_CPU_GATE}); bad pivots {er_f.bad}; plain versions {dict(plain_f)}")
+    if not (al["violation"][1] <= GEO_VIOLATION_DROP * al["violation"][0]
+            and pen["violation"][1] <= GEO_VIOLATION_DROP * pen["violation"][0]
+            and al_gap <= GEO_CPU_GATE and not (dev == "cuda" and plain_f)):
+        raise AssertionError("geometry f): the constrained solves missed their gates")
+
+    # the basis fits on the drive's 200 Hz positions (card = CPU on every
+    # GEO_BASIS_CUT-th sample: the CPU's forward mode over the whole graph
+    # costs ~20 s)
+    def basis_fit(device, stride):
+        ts, pos = synthetic.drive_positions(*GEO_BASIS_DRIVE, device=device)
+        x, pos = (2.0 * ts / ts[-1] - 1.0)[::stride], pos[::stride]
+        sync()
+        t0 = time.perf_counter()
+        fb = basis.FitBasis(x, pos, GEO_BASIS_N, basis.chebyshev2_weights, device=device)
+        sync()
+        fit_s = time.perf_counter() - t0
+        resid = fb(x) - pos
+        ft = basis.evaluation_factor(GEO_BASIS_N, basis.chebyshev2_weights)
+        g = convert.graph_from_arrays([(ft.name, np.zeros((len(x), 1), np.int64),
+                                        {"x": x, "y": pos[:, 0]}, np.ones((len(x), 1, 1)))],
+                                      device=device)
+        v = convert.values_from_arrays({f"Vector{GEO_BASIS_N}": (np.array([0]),
+                                                                 np.zeros((1, GEO_BASIS_N)))},
+                                       device=device)
+        t0 = time.perf_counter()
+        gn = optimizers.gauss_newton(g, v, OptimizerParams(max_iterations=3), device=device)
+        sync()
+        return dict(samples=len(x), c=fb.coefficients.cpu(), c_graph=gn.values.at(0).cpu(),
+                    fit_s=fit_s, graph_s=time.perf_counter() - t0, gn_iterations=gn.iterations,
+                    rms=float(torch.sqrt(torch.mean(resid * resid))))
+
+    full = basis_fit(dev, 1)
+    cut = {d_: basis_fit(d_, GEO_BASIS_CUT) for d_ in dict.fromkeys((dev, "cpu"))}
+    c_scale = cut["cpu"]["c"].abs().max().item()
+    fit_gap = (cut[dev]["c"] - cut["cpu"]["c"]).abs().max().item() / c_scale
+    graph_gap = (cut[dev]["c_graph"] - cut["cpu"]["c_graph"]).abs().max().item() / c_scale
+    graph_fit = ((full["c_graph"] - full["c"][:, 0]).abs().max() / full["c"].abs().max()).item()
+    t0 = time.perf_counter()
+    qp_res = qp.solve_qp(2 * np.eye(2), np.array([-2.0, -5.0]),
+                         CI=np.array([[1.0, -2.0], [-1.0, -2.0], [-1.0, 2.0], [1.0, 0.0], [0.0, 1.0]]),
+                         ci=np.array([-2.0, -6.0, -2.0, 0.0, 0.0]))
+    qp_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    lp_res = qp.solve_lp(np.array([-1.0, -1.0]),
+                         CI=np.array([[-1.0, -2.0], [-4.0, -2.0], [1.0, 0.0], [0.0, 1.0]]),
+                         ci=np.array([-4.0, -12.0, 0.0, 0.0]))
+    lp_ms = (time.perf_counter() - t0) * 1e3
+    out["f"] = dict(runs=runs, al_cut=GEO_CONSTRAINT_CUT, al_cut_abs=al_gap, bad_pivots=er_f.bad,
+                    plain_calls=dict(plain_f),
+                    basis=dict(samples=full["samples"], N=GEO_BASIS_N, rms=full["rms"],
+                               fit_ms=1e3 * full["fit_s"], graph_s=full["graph_s"],
+                               gn_iterations=full["gn_iterations"], cut_samples=cut[dev]["samples"],
+                               card_cpu_rel=fit_gap, graph_card_cpu_rel=graph_gap,
+                               graph_vs_fit_rel=graph_fit),
+                    qp=dict(ms=qp_ms, x=qp_res.x.tolist(), iterations=qp_res.iterations),
+                    lp=dict(ms=lp_ms, x=lp_res.x.tolist(), iterations=lp_res.iterations))
+    log(f"geometry f) FitBasis (Chebyshev2, N = {GEO_BASIS_N}) on {full['samples']} positions at "
+        f"{GEO_BASIS_DRIVE[1]} Hz: {1e3 * full['fit_s']:.2f} ms, RMS {full['rms']:.3e} m; the "
+        f"evaluation-factor graph (x): GN {full['gn_iterations']} iterations in "
+        f"{full['graph_s']:.2f} s, against FitBasis {graph_fit:.3e}; on every {GEO_BASIS_CUT}th "
+        f"sample card = CPU {fit_gap:.3e} (FitBasis), {graph_gap:.3e} (the graph) (rel, gate "
+        f"{GEO_CPU_GATE}); host solve_qp {qp_ms:.3f} ms "
+        f"({qp_res.iterations} iterations, x {qp_res.x}), solve_lp {lp_ms:.3f} ms "
+        f"({lp_res.iterations} iterations, x {lp_res.x})")
+    if not (fit_gap <= GEO_CPU_GATE and graph_gap <= GEO_CPU_GATE and graph_fit <= 1e-6
+            and np.allclose(qp_res.x, [1.4, 1.7], atol=1e-8)
+            and np.allclose(lp_res.x, [8.0 / 3.0, 2.0 / 3.0], atol=1e-5)):
+        raise AssertionError("geometry f): the basis fits or the host QP / LP missed their gates")
+    lap("f")
+
+    # g) the four kernels at every bucket shape of a)-f)
+    cases = sorted(shapes)
+    errs = {}
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        check_kernels(torch, (v2, v1, kernels), cases, {"float64": {}, "float32": {}},
+                      extras=False, errs_out=errs)
+    out["g"] = dict(distinct=len(cases), shapes=cases, max_abs_err=errs)
+    log(f"geometry g) {len(cases)} distinct (B, nf, ns, d) shapes of a)-f) (d = "
+        f"{sorted({c[3] for c in cases})}), each kernel against its plain version in float64 and "
+        f"float32: max abs err {errs} ({time.perf_counter() - t0:.1f} s)")
+    if errs and not max(errs["float64"].values()) <= GEO_KERNEL_GATE:
+        raise AssertionError(f"geometry g): a kernel parts from its plain version by more than "
+                             f"{GEO_KERNEL_GATE} in float64: {errs['float64']}")
+    lap("g")
+    out["launches"] = launches
+    log(f"geometry launches (counters reset before each solve of a)-f), read after): {launches}")
+    if dev == "cuda" and not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"geometry: a kernel was never launched on the geometry path: {launches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"geometry phase: {out['phase_s']:.1f} s (" + ", ".join(
+        f"{k}) {x:.1f} s" for k, x in secs.items()) + ")")
+    return out
+
+
 # --- phase 7: smart-factor bundle adjustment --------------------------------------------
 
 
@@ -4249,6 +4744,7 @@ def main():
     navigation_only = "--navigation-only" in sys.argv[1:]
     init_only = "--init-only" in sys.argv[1:]
     robust_only = "--robust-only" in sys.argv[1:]
+    geometry_only = "--geometry-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -4302,6 +4798,12 @@ def main():
             isam2_timed[name].setdefault(ROUTE_KERNEL[b[col]], []).append(b[:3] + (3,))
     log(f"iSAM2 d = 3 buckets ({ISAM2_SHAPES}): {len(isam2_level)} level shapes, "
         f"{len(isam2_wild)} wildfire shapes, {len(isam2_cases)} distinct")
+
+    if geometry_only:
+        # phase 15 alone; no result line
+        run_geometry(torch, v1)
+        log(f"geometry-only run passed in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
 
     if robust_only:
         # phase 14 alone; no result line
@@ -4727,9 +5229,14 @@ def main():
     robust_res = run_robust(torch, v1)
     log(f"robust phase done at {time.perf_counter() - t_start:.1f} s")
 
+    # 15. the extended geometry and the factors on it, constrained
+    # optimization and the basis fits
+    geometry_res = run_geometry(torch, v1)
+    log(f"geometry phase done at {time.perf_counter() - t_start:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 15. result lines
+    # 16. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
@@ -4748,7 +5255,7 @@ def main():
             launches=(launches[kname] + isam2["launches"][kname] + mixed_launches[kname]
                       + family["launches"][kname] + part_res["launches"][kname]
                       + nav_res["launches"][kname] + init_res["launches"][kname]
-                      + robust_res["launches"][kname]),
+                      + robust_res["launches"][kname] + geometry_res["launches"][kname]),
             max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
@@ -4765,6 +5272,7 @@ def main():
             launches_navigation_isam2=nav_res["c"]["launches"][kname],
             launches_init_path=init_res["launches"][kname],
             launches_robust_path=robust_res["launches"][kname],
+            launches_geometry_path=geometry_res["launches"][kname],
             cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname]
             + opt_res["mixed"]["cuda_launches"][kname],
             cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname]
@@ -4782,7 +5290,7 @@ def main():
                                   "optimizers": opt_res, "plans": plans,
                                   "host_engine": host_res, "partitioned": part_res,
                                   "navigation": nav_res, "init": init_res,
-                                  "robust": robust_res}),
+                                  "robust": robust_res, "geometry": geometry_res}),
                      allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

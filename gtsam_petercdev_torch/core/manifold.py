@@ -6,8 +6,9 @@ over its parameter layout (one tensor, or a NamedTuple of tensors).
 optimizers only call `retract` / `local` through these descriptors.
 
 Registered here: Pose2 (first-order chart, the default build's), Pose3,
-Rot3, Rot2, Point2/3 and Vector1/2/3/6. The extended geometry (Sim3,
-Unit3, EssentialMatrix, OrientedPlane3, Line3) comes with a later slice.
+Rot3, Rot2, Point2/3, Vector1/2/3/6 and the extended geometry: Sim3 (dim
+7), Unit3 (2), EssentialMatrix (5), OrientedPlane3 (3) and Line3 (4),
+imported lazily so that the core import graph stays acyclic.
 """
 
 from __future__ import annotations
@@ -150,9 +151,42 @@ ROT2 = register(
     )
 )
 
+
+def _register_extended_geometry():
+    """Sim3 / Unit3 / EssentialMatrix / OrientedPlane3 / Line3 (imported
+    lazily to keep the core import graph acyclic)."""
+    from gtsam_petercdev_torch.geometry import essential, sim3, unit3
+
+    register(
+        ManifoldType(
+            name="Sim3",
+            dim=7,
+            retract=sim3.retract,
+            local=sim3.local,
+            identity=sim3.identity,
+            compose=sim3.compose,
+            inverse=sim3.inverse,
+            between=sim3.between,
+            expmap=sim3.expmap,
+            logmap=sim3.logmap,
+        )
+    )
+    register(ManifoldType(name="Unit3", dim=2, retract=unit3.retract, local=unit3.local,
+                          identity=unit3.identity))
+    register(ManifoldType(name="EssentialMatrix", dim=5, retract=essential.essential_retract,
+                          local=essential.essential_local,
+                          identity=essential.essential_identity))
+    register(ManifoldType(name="OrientedPlane3", dim=3, retract=essential.plane_retract,
+                          local=essential.plane_local, identity=essential.plane_identity))
+    register(ManifoldType(name="Line3", dim=4, retract=essential.line_retract,
+                          local=essential.line_local, identity=essential.line_identity))
+
+
 POINT2 = register(vector_space("Point2", 2))
 POINT3 = register(vector_space("Point3", 3))
 VECTOR1 = register(vector_space("Vector1", 1))
 VECTOR2 = register(vector_space("Vector2", 2))
 VECTOR3 = register(vector_space("Vector3", 3))
 VECTOR6 = register(vector_space("Vector6", 6))
+
+_register_extended_geometry()

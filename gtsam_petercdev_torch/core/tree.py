@@ -2,8 +2,9 @@
 
 A manifold element is either one tensor (Pose2 [..., 3], vectors) or a
 NamedTuple of tensors (Pose3(R, t), SfmCamera(R, t, cal)); factor
-parameters may also be a dict of tensors ({"uv": ...}). These helpers stand
-in for `jax.tree_util.tree_map` / `tree_leaves` over those layouts.
+parameters may also be a dict of tensors ({"uv": ...}), or None (a factor
+without parameters: an empty tree, as in JAX). These helpers stand in for
+`jax.tree_util.tree_map` / `tree_leaves` over those layouts.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ def _rebuild(like, parts):
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply fn leafwise over one or more trees of the same layout."""
+    if tree is None:
+        return None
     if _is_tuple(tree):
         return _rebuild(tree, [tree_map(fn, *xs) for xs in zip(tree, *rest)])
     if isinstance(tree, dict):
@@ -29,6 +32,8 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> List[Any]:
+    if tree is None:
+        return []
     if _is_tuple(tree) or isinstance(tree, dict):
         out: List[Any] = []
         for x in tree.values() if isinstance(tree, dict) else tree:
@@ -40,6 +45,8 @@ def tree_leaves(tree: Any) -> List[Any]:
 def tree_stack(elements, stack_fn) -> Any:
     """Stack a list of same-layout trees leafwise with stack_fn(list)."""
     first = elements[0]
+    if first is None:
+        return None
     if _is_tuple(first):
         return _rebuild(
             first, [tree_stack([e[i] for e in elements], stack_fn) for i in range(len(first))]

@@ -32,7 +32,21 @@ package and the port (the JAX side keeps its factor data as numpy already):
            layout of its type}), "Shonan<p>" ([N, 3, 3] measured rotations)
            and "ShonanGauge<p>" ([N, p, 3]) on the value type "SOn<p>"
            ([N, p, p], registered on first use), "TranslationDirection"
-           ([N, 3] unit directions) and "TranslationPrior" ([N, 3])
+           ([N, 3] unit directions) and "TranslationPrior" ([N, 3]); or
+           the extended geometry's: the value types Sim3 ((R [N,3,3], t
+           [N,3], s [N])), Unit3 ([N, 3]), EssentialMatrix ((R, t [N,3])),
+           OrientedPlane3 ((n [N,3], d [N])), Line3 ((R, a [N], b [N])) and
+           "Vector<N>" (a basis fit's coefficients, registered on first
+           use); the sam factors "Range<Pose><Point>" ([N] ranges),
+           "BearingPose2Point2" ([N]), "BearingRangePose2Point2" ([N, 2]),
+           "BearingPose3Point3" ([N, 3] unit directions); the factors of
+           slam/extra_factors.py under their names ("PoseRotationPrior"
+           [N, 3, 3], "EssentialMatrixConstraint" an EssentialMatrix,
+           "OrientedPlane3Factor" / "OrientedPlane3DirectionPrior" an
+           OrientedPlane3, "KarcherMeanFactor<n>" and "ReferenceFrameFactor"
+           None, the rest arrays or dicts of arrays as their docstrings name
+           them), "Anti<name>" (the params of <name>), and
+           "BasisEval<N>_<weight function>" ({"x": [N], "y": [N]})
 
 This is the one place that carries state across: a JAX `Values` / graph,
 or a smart-factor batch, read out as numpy, becomes the port's here.
@@ -45,8 +59,12 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from gtsam_petercdev_torch import basis
+from gtsam_petercdev_torch.basis import fit as basis_fit
 from gtsam_petercdev_torch.device import DeviceLike, resolve_device, resolve_dtype
+from gtsam_petercdev_torch.geometry.essential import EssentialMatrix, Line3, OrientedPlane3
 from gtsam_petercdev_torch.geometry.pose3 import Pose3
+from gtsam_petercdev_torch.geometry.sim3 import Sim3
 from gtsam_petercdev_torch.navigation import ahrs, extra_factors
 from gtsam_petercdev_torch.navigation import factors as nav_factors
 from gtsam_petercdev_torch.navigation.navstate import NavState
@@ -55,12 +73,16 @@ from gtsam_petercdev_torch.nonlinear import custom
 from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph, row_block
 from gtsam_petercdev_torch.nonlinear.fixed_lag import linear_container_factor
 from gtsam_petercdev_torch.nonlinear.values import Values
+from gtsam_petercdev_torch.sam import factors as sam_factors
 from gtsam_petercdev_torch.sfm import shonan, translation
 from gtsam_petercdev_torch.sfm.bal import SfmCamera
+from gtsam_petercdev_torch.slam import extra_factors as slam_extra
 from gtsam_petercdev_torch.slam import factors, projection, smart, unstable_factors
 from gtsam_petercdev_torch.slam import initialize  # noqa: F401  (registers Vector9)
 
-_LAYOUTS = {"Pose3": Pose3, "SfmCamera": SfmCamera, "NavState": NavState}
+_LAYOUTS = {"Pose3": Pose3, "SfmCamera": SfmCamera, "NavState": NavState, "Sim3": Sim3,
+            "EssentialMatrix": EssentialMatrix, "OrientedPlane3": OrientedPlane3,
+            "Line3": Line3}
 _NAVIGATION = {
     make().name: make
     for make in (
@@ -82,7 +104,34 @@ _PARAM_LAYOUTS = {
     "ImuFactor": lambda p: dict(p, pim=PIM(*p["pim"])),
     "CombinedImuFactor": lambda p: dict(p, pim=PIM(*p["pim"])),
     "AHRSFactor": lambda p: ahrs.PreintegratedRotation(*p),
+    "EssentialMatrixConstraint": lambda p: EssentialMatrix(*p),
+    "OrientedPlane3Factor": lambda p: OrientedPlane3(*p),
+    "OrientedPlane3DirectionPrior": lambda p: OrientedPlane3(*p),
 }
+# the extended geometry's factors (params arrays, dicts of arrays or None, as
+# they are, except the layouts above)
+_EXTRA = {
+    make().name: make
+    for make in (
+        sam_factors.bearing_factor_2d,
+        sam_factors.bearing_range_factor_2d,
+        sam_factors.bearing_factor_3d,
+        slam_extra.frobenius_factor,
+        slam_extra.frobenius_between_factor,
+        slam_extra.pose_rotation_prior,
+        slam_extra.pose_translation_prior,
+        slam_extra.rotate_factor,
+        slam_extra.rotate_directions_factor,
+        slam_extra.essential_matrix_factor,
+        slam_extra.essential_matrix_constraint,
+        slam_extra.oriented_plane3_factor,
+        slam_extra.oriented_plane3_direction_prior,
+        slam_extra.reference_frame_factor,
+        slam_extra.planar_projection_factor,
+    )
+}
+_KARCHER, _ANTI, _BASIS = "KarcherMeanFactor", "Anti", "BasisEval"
+_POSES = ("Pose2", "Pose3")
 _PROJECTION = {
     make().name: make
     for make in (
@@ -106,9 +155,28 @@ def _layout(type_name: str, params):
 
 
 def _register_son(type_name: str) -> None:
-    """Register an "SOn<p>" value type (SO(p), sfm/shonan.py) on first use."""
+    """Register an "SOn<p>" value type (SO(p), sfm/shonan.py) or a
+    "Vector<N>" (basis/fit.py) on first use."""
     if type_name.startswith("SOn") and type_name[3:].isdigit():
         shonan.register_son(int(type_name[3:]))
+    elif type_name.startswith("Vector") and type_name[6:].isdigit():
+        basis_fit._coeff_type(int(type_name[6:]))
+
+
+def _extended_factor(name: str):
+    """FactorType of the extended geometry's factors from its name, or None."""
+    if name in _EXTRA:
+        return _EXTRA[name]()
+    if name.startswith("Range") and name[5:10] in _POSES:
+        return sam_factors.range_factor(name[5:10], name[10:])
+    if name.startswith(_KARCHER) and name[len(_KARCHER):].isdigit():
+        return slam_extra.karcher_mean_factor(int(name[len(_KARCHER):]))
+    if name.startswith(_ANTI):
+        return slam_extra.anti_factor(factor_type(name[len(_ANTI):]))
+    if name.startswith(_BASIS):
+        n, fn = name[len(_BASIS):].split("_", 1)
+        return basis_fit.evaluation_factor(int(n), getattr(basis, fn))
+    return None
 
 
 def factor_type(name: str):
@@ -135,7 +203,8 @@ def factor_type(name: str):
             return make(int(name[len(prefix):]))
     if name in _SFM:
         return _SFM[name]()
-    return factors.factor_type(name)
+    ft = _extended_factor(name)
+    return ft if ft is not None else factors.factor_type(name)
 
 
 def values_from_arrays(
@@ -159,22 +228,29 @@ def graph_from_arrays(
     graph = NonlinearFactorGraph(device=device, dtype=dtype)
     for name, keys, params, sqrt_info in factors:
         ft = factor_type(name)
-        if name.startswith("LinearContainer["):
-            x0s, sqrtH, rhs = params
-            params = (tuple(_layout(t, x0) for t, x0 in zip(ft.var_types, x0s)), sqrtH, rhs)
-        elif name.startswith(_CUSTOM_CONTAINER):
-            params = {"A": tuple(params["A"]), "b": params["b"],
-                      "x0": tuple(_layout(t, x0) for t, x0 in zip(ft.var_types, params["x0"]))}
-        elif name in _PARAM_LAYOUTS:
-            params = _PARAM_LAYOUTS[name](params)
-        elif name.startswith(_EM):
-            params = dict(params, measured=_layout(ft.var_types[0], params["measured"]))
-        elif name in _NAVIGATION:  # arrays or dicts of arrays, as they are
-            pass
-        elif not isinstance(params, dict):  # Prior / Between: a manifold value
-            params = _layout(ft.var_types[0], params)
-        graph.add_batch(ft, keys, params, sqrt_info)
+        graph.add_batch(ft, keys, _factor_params(name, ft, params), sqrt_info)
     return graph
+
+
+def _factor_params(name: str, ft, params):
+    """A factor batch's numpy params in the port's layout."""
+    if name.startswith(_ANTI):
+        return _factor_params(name[len(_ANTI):], ft, params)
+    if name.startswith("LinearContainer["):
+        x0s, sqrtH, rhs = params
+        return (tuple(_layout(t, x0) for t, x0 in zip(ft.var_types, x0s)), sqrtH, rhs)
+    if name.startswith(_CUSTOM_CONTAINER):
+        return {"A": tuple(params["A"]), "b": params["b"],
+                "x0": tuple(_layout(t, x0) for t, x0 in zip(ft.var_types, params["x0"]))}
+    if name in _PARAM_LAYOUTS:
+        return _PARAM_LAYOUTS[name](params)
+    if name.startswith(_EM):
+        return dict(params, measured=_layout(ft.var_types[0], params["measured"]))
+    if name in _NAVIGATION or _extended_factor(name) is not None:
+        return params  # arrays, dicts of arrays or None, as they are
+    if not isinstance(params, dict):  # Prior / Between: a manifold value
+        return _layout(ft.var_types[0], params)
+    return params
 
 
 

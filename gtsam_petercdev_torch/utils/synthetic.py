@@ -1,8 +1,10 @@
 """Synthetic graphs: Pose3 rings with the topology of the sphere benchmark,
 a City10000-like Pose2 stream (`city_stream`), an IMU + GPS drive
 (`imu_gps_drive`), the scenes of the unstable factors and the camera
-factors, and those of the robust and global front end (`ring_rotations`,
-`sphere_directions`).
+factors, those of the robust and global front end (`ring_rotations`,
+`sphere_directions`) and those of the extended geometry (`planar_slam`,
+`sim3_sphere`, `plane_slam`, `two_view_pairs`, `extra_factor_scenes`,
+`drive_positions`).
 
 `sphere_rings(n_rings, n_per_ring)` places n_rings x n_per_ring poses on
 latitude rings of a sphere, facing along each ring. Factors:
@@ -25,7 +27,7 @@ import torch
 
 from gtsam_petercdev_torch.core.keys import symbol
 from gtsam_petercdev_torch.device import DeviceLike
-from gtsam_petercdev_torch.geometry import pose3, so3
+from gtsam_petercdev_torch.geometry import essential, pose2, pose3, so3
 from gtsam_petercdev_torch.linear import noise
 from gtsam_petercdev_torch.navigation import preintegration as pre
 from gtsam_petercdev_torch.navigation.factors import combined_covariance
@@ -499,3 +501,423 @@ def sphere_directions(n_rings: int = 50, n_per_ring: int = 50, seed: int = 0,
     flipped = np.sort(rng.choice(len(a), size=int(round(share * len(a))), replace=False))
     d[flipped] *= -1.0
     return np.stack([a, b], axis=1), d, pos, flipped
+
+
+# --- scenes of the extended geometry ---------------------------------------------
+
+# planar landmark SLAM: a landmark is seen within PLANAR_RANGE m, by its
+# PLANAR_OBS nearest from each pose; bearing / range sigmas (rad, m); a
+# share of the observations after a landmark's first is range-only, another
+# bearing-only; the start perturbs poses (m, rad) and landmarks (m)
+PLANAR_RANGE = 8.0
+PLANAR_OBS = 4
+PLANAR_SIGMAS = (0.05, 0.2)
+PLANAR_SHARES = (0.1, 0.1)
+PLANAR_START = (0.1, 0.05, 0.3)
+
+
+def planar_slam(n_poses: int = 3687, n_landmarks: int = 1000, seed: int = 0):
+    """Planar landmark SLAM in the PlanarSLAMExample / Victoria Park pattern:
+    `city_stream(n_poses, seed)`'s Pose2 walk (its odometry lines only, at
+    City10000's sigmas) and `n_landmarks` Point2 landmarks drawn uniformly
+    over the walk's bounding box (+2 m). Each pose observes its PLANAR_OBS
+    nearest landmarks within PLANAR_RANGE m: a landmark's first observation
+    is a bearing-range factor (so each landmark is determined), a later one
+    range-only or bearing-only with PLANAR_SHARES, else bearing-range.
+    Landmarks no pose sees are dropped. The start is the truth perturbed by
+    PLANAR_START; a prior pins pose 0. From one numpy seed.
+
+    Returns (values, factors, truth): the first two in the numpy format of
+    `utils/convert.py`, truth {"poses": [n, 3], "landmarks": [L, 2],
+    "landmark_keys": [L]}; landmark keys follow the poses'."""
+    lines, gt = city_stream(n_poses, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    odo = [ln.split() for ln in lines]
+    odo = np.array([[int(f[1]), int(f[3])] + [float(x) for x in f[6:9]]
+                    for f in odo if int(f[3]) == int(f[1]) + 1])
+    lo, hi = gt[:, :2].min(axis=0) - 2.0, gt[:, :2].max(axis=0) + 2.0
+    lms = rng.uniform(lo, hi, size=(n_landmarks, 2))
+    d2 = np.sum((gt[:, None, :2] - lms[None]) ** 2, axis=-1)  # [n, L]
+    near = np.argsort(d2, axis=1, kind="stable")[:, :PLANAR_OBS]
+    obs = [(i, j) for i in range(n_poses) for j in near[i] if d2[i, j] <= PLANAR_RANGE ** 2]
+    seen = np.unique([j for _, j in obs])
+    lm_key = {int(j): n_poses + k for k, j in enumerate(seen)}
+    kinds = {"BearingRangePose2Point2": [], "RangePose2Point2": [], "BearingPose2Point2": []}
+    first = set()
+    sb, sr = PLANAR_SIGMAS
+    for i, j in obs:
+        dx, dy = lms[j] - gt[i, :2]
+        c, s = np.cos(gt[i, 2]), np.sin(gt[i, 2])
+        b = np.arctan2(-s * dx + c * dy, c * dx + s * dy) + rng.normal() * sb
+        r = np.hypot(dx, dy) + rng.normal() * sr
+        u = rng.random()
+        kind = "BearingRangePose2Point2"
+        if j in first:
+            kind = ("RangePose2Point2" if u < PLANAR_SHARES[0] else "BearingPose2Point2"
+                    if u < sum(PLANAR_SHARES) else kind)
+        first.add(j)
+        kinds[kind].append((i, lm_key[int(j)], b, r))
+    factors = [("PriorPose2", np.zeros((1, 1), dtype=np.int64), gt[:1],
+                np.diag([1e3, 1e3, 1e4])[None].copy()),
+               ("BetweenPose2", odo[:, :2].astype(np.int64), odo[:, 2:],
+                np.broadcast_to(np.diag(1.0 / np.asarray(CITY_SIGMAS)), (len(odo), 3, 3)).copy())]
+    for kind, rows in kinds.items():
+        if not rows:
+            continue
+        a = np.array(rows)
+        keys = a[:, :2].astype(np.int64)
+        if kind == "BearingRangePose2Point2":
+            params, info = a[:, 2:4], np.diag([1.0 / sb, 1.0 / sr])
+        elif kind == "RangePose2Point2":
+            params, info = a[:, 3], np.eye(1) / sr
+        else:
+            params, info = a[:, 2], np.eye(1) / sb
+        factors.append((kind, keys, params, np.broadcast_to(info, (len(a),) + info.shape).copy()))
+    sp, sa, sl = PLANAR_START
+    start = gt + rng.normal(size=gt.shape) * np.array([sp, sp, sa])
+    start[0] = gt[0]
+    lm_true = lms[seen]
+    values = {"Pose2": (np.arange(n_poses, dtype=np.int64), start),
+              "Point2": (np.array([lm_key[int(j)] for j in seen], dtype=np.int64),
+                         lm_true + rng.normal(size=lm_true.shape) * sl)}
+    truth = {"poses": gt, "landmarks": lm_true, "landmark_keys": values["Point2"][0]}
+    return values, factors, truth
+
+
+# the Sim(3) lift of the sphere: the odometry's scale noise and the scale's
+# sigma in its factors and the prior's
+SIM3_SCALE_SIGMA = 0.01
+
+
+def sim3_sphere(n_rings: int = 50, n_per_ring: int = 50, seed: int = 0,
+                scale_sigma: float = SIM3_SCALE_SIGMA):
+    """`sphere_rings(n_rings, n_per_ring, seed)` lifted to Sim(3), the pose
+    graph of monocular SLAM's scale-drift-aware loop closure (Strasdat et
+    al., RSS 2010): each odometry measurement's scale is exp(N(0,
+    scale_sigma^2)) (drawn after the sphere's own draws, from the same
+    seed's second stream), the loop closures keep scale 1, the start has
+    scale 1 everywhere. Factor sigmas: the sphere's, and scale_sigma on
+    log-scale; the prior pins pose 0 (sim(3) scale 1).
+
+    Returns (values, factors) in the numpy format of `utils/convert.py`."""
+    va, fa = sphere_rings(n_rings, n_per_ring, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    keys, (R0, t0) = va["Pose3"]
+    (_, pk, (pR, pt), pinfo), (_, bk, (bR, bt), binfo) = fa
+    n_odo = n_rings * n_per_ring - 1
+    s = np.ones(len(bk))
+    s[:n_odo] = np.exp(rng.normal(size=n_odo) * scale_sigma)
+
+    def lift(info, scale_info):
+        out = np.zeros((len(info), 7, 7))
+        out[:, :6, :6] = info
+        out[:, 6, 6] = scale_info
+        return out
+
+    values = {"Sim3": (keys, (R0, t0, np.ones(len(keys))))}
+    factors = [("PriorSim3", pk, (pR, pt, np.ones(len(pk))), lift(pinfo, 1e3)),
+               ("BetweenSim3", bk, (bR, bt, s), lift(binfo, 1.0 / scale_sigma))]
+    return values, factors
+
+
+# plane SLAM: rooms in a row along x, each PLANE_ROOM (x, y, z) m with six
+# planes (floor, ceiling, four walls) slightly tilted room by room; keyframes
+# walk each room's ellipse, then the door to the next; odometry sigmas (rad,
+# m), the plane measurement's (unit3 tangent, m) and the direction prior's;
+# the start perturbs poses (rad, m) and planes (tangent, m)
+PLANE_ROOM = (6.0, 4.0, 3.0)
+PLANE_ODO_SIGMAS = (0.01, 0.02)
+PLANE_MEAS_SIGMAS = (0.01, 0.02)
+PLANE_PRIOR_SIGMAS = (0.1, 1.0)
+PLANE_START = ((0.02, 0.1), (0.05, 0.1))
+
+
+def _planes_of_room(k: int, rng):
+    """The six (n [6, 3], d [6]) planes of room k, n.x + d = 0, normals
+    pointing into the room, each tilted by N(0, 0.02^2) rad."""
+    X, Y, Z = PLANE_ROOM
+    x0 = k * X
+    n = np.array([[0, 0, 1], [0, 0, -1], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0]], float)
+    pts = np.array([[x0, 0, 0], [x0, 0, Z], [x0, 0, 0], [x0 + X, 0, 0], [x0, -Y / 2, 0],
+                    [x0, Y / 2, 0]])
+    R = so3.expmap(torch.from_numpy(rng.normal(size=(6, 3)) * 0.02)).numpy()
+    n = np.einsum("pij,pj->pi", R, n)
+    return n, -np.sum(n * pts, axis=1)
+
+
+def plane_slam(n_keyframes: int = 1000, n_planes: int = 60, seed: int = 0):
+    """RGB-D SLAM with infinite planes (Kaess, ICRA 2015): n_planes / 6 rooms
+    in a row; n_keyframes Pose3 keyframes split evenly over the rooms, each
+    room's share walking an ellipse around its centre at 1.5 m height,
+    looking along the walk, with a slow pitch / roll; Pose3 odometry between
+    consecutive keyframes (PLANE_ODO_SIGMAS), and every keyframe observing
+    the six planes of its room through an OrientedPlane3Factor (the plane in
+    its frame retracted by N(0, PLANE_MEAS_SIGMAS^2)); one
+    OrientedPlane3DirectionPrior a plane at PLANE_PRIOR_SIGMAS; a prior pins
+    keyframe 0. The start is the truth perturbed by PLANE_START. From one
+    numpy seed.
+
+    Returns (values, factors, truth {"R", "t", "n", "d"}) in the numpy format
+    of `utils/convert.py`; plane keys follow the keyframes'."""
+    rng = np.random.default_rng(seed)
+    rooms = n_planes // 6
+    per = -(-n_keyframes // rooms)
+    X, Y, Z = PLANE_ROOM
+    room = np.arange(n_keyframes) // per
+    ang = 2.0 * np.pi * (np.arange(n_keyframes) % per) / per
+    pos = np.stack([room * X + X / 2 + 0.3 * X * np.cos(ang), 0.3 * Y * np.sin(ang),
+                    np.full(n_keyframes, 1.5)], axis=1)
+    yaw = ang + np.pi / 2
+    w_yaw = np.stack([np.zeros(n_keyframes), np.zeros(n_keyframes), yaw], axis=1)
+    wobble = np.stack([0.05 * np.sin(3 * ang), 0.05 * np.cos(2 * ang),
+                       np.zeros(n_keyframes)], axis=1)
+    R = np.einsum("nij,njk->nik", so3.expmap(torch.from_numpy(w_yaw)).numpy(),
+                  so3.expmap(torch.from_numpy(wobble)).numpy())
+    planes = [_planes_of_room(k, rng) for k in range(rooms)]
+    pn = np.concatenate([p[0] for p in planes])
+    pd = np.concatenate([p[1] for p in planes])
+    P = len(pd)
+    keys = np.arange(n_keyframes, dtype=np.int64)
+    pkeys = n_keyframes + np.arange(P, dtype=np.int64)
+
+    so, st = PLANE_ODO_SIGMAS
+    a, b = np.arange(n_keyframes - 1), np.arange(1, n_keyframes)
+    odo = _between_np((R[a], pos[a]), (R[b], pos[b]))
+    odo = _compose_np(odo, _exp_np(rng.normal(size=(len(a), 6)) * np.array([so] * 3 + [st] * 3)))
+
+    obs_i = np.repeat(keys, 6)
+    obs_p = (room[:, None] * 6 + np.arange(6)[None]).reshape(-1)
+    Rp, tp = R[obs_i], pos[obs_i]
+    n_loc = np.einsum("nji,nj->ni", Rp, pn[obs_p])
+    d_loc = pd[obs_p] + np.sum(pn[obs_p] * tp, axis=1)
+    sn, sd = PLANE_MEAS_SIGMAS
+    m = _plane_retract_np(n_loc, d_loc, rng.normal(size=(len(obs_i), 3)) * np.array([sn, sn, sd]))
+    pr_n, pr_d = PLANE_PRIOR_SIGMAS
+    prior = _plane_retract_np(pn, pd, rng.normal(size=(P, 3)) * np.array([pr_n, pr_n, pr_d]))
+
+    (sr, sp), (spn, spd) = PLANE_START
+    xi0 = rng.normal(size=(n_keyframes, 6)) * np.array([sr] * 3 + [sp] * 3)
+    xi0[0] = 0.0
+    start = _compose_np((R, pos), _exp_np(xi0))
+    p_start = _plane_retract_np(pn, pd, rng.normal(size=(P, 3)) * np.array([spn, spn, spd]))
+
+    def info(sig, n):
+        return np.broadcast_to(np.diag(1.0 / np.asarray(sig)), (n, len(sig), len(sig))).copy()
+
+    factors = [
+        ("PriorPose3", keys[:1, None], (R[:1], pos[:1]), np.diag([1e3] * 3 + [1e2] * 3)[None].copy()),
+        ("BetweenPose3", np.stack([a, b], axis=1), odo, info([so] * 3 + [st] * 3, len(a))),
+        ("OrientedPlane3Factor", np.stack([obs_i, pkeys[obs_p]], axis=1), m,
+         info([sn, sn, sd], len(obs_i))),
+        ("OrientedPlane3DirectionPrior", pkeys[:, None], prior, info([pr_n, pr_n, pr_d], P)),
+    ]
+    values = {"Pose3": (keys, start), "OrientedPlane3": (pkeys, p_start)}
+    return values, factors, {"R": R, "t": pos, "n": pn, "d": pd}
+
+
+def _plane_retract_np(n, d, xi):
+    """OrientedPlane3 retract on numpy: (n [P, 3], d [P]) by xi [P, 3]."""
+    p = essential.plane_retract(essential.OrientedPlane3(torch.from_numpy(n), torch.from_numpy(d)),
+                                torch.from_numpy(xi))
+    return p.n.numpy(), p.d.numpy()
+
+
+# two-view relative poses: rotation angle sigma (rad), the points' depth
+# range (m) in camera B, the baseline's length (m), the correspondences'
+# noise on normalized image coordinates (~0.5 px at f = 500), the epipolar
+# residual's sigma and the start's perturbation of E (rad, tangent)
+TWO_VIEW_ROT = 0.2
+TWO_VIEW_DEPTH = (2.0, 8.0)
+TWO_VIEW_BASELINE = 1.0
+TWO_VIEW_PIXEL = 1e-3
+TWO_VIEW_START = (0.05, 0.1)
+
+
+def two_view_pairs(n_pairs: int = 1000, n_points: int = 100, seed: int = 0):
+    """An SfM front end's two-view refinement: n_pairs image pairs, each an
+    EssentialMatrix value (1R2, unit t: x_a = R x_b + t) and n_points
+    calibrated correspondences through EssentialMatrixFactor (pA in image A,
+    pB in image B, both normalized coordinates + N(0, TWO_VIEW_PIXEL^2)),
+    whitened by 1 / TWO_VIEW_PIXEL; no variable is shared between pairs.
+    The start is the truth retracted by N(0, TWO_VIEW_START^2) (rotation,
+    direction). From one numpy seed.
+
+    Returns (values, factors, truth {"R": [P, 3, 3], "t": [P, 3]}) in the
+    numpy format of `utils/convert.py`."""
+    rng = np.random.default_rng(seed)
+    R = so3.expmap(torch.from_numpy(rng.normal(size=(n_pairs, 3)) * TWO_VIEW_ROT)).numpy()
+    t = rng.normal(size=(n_pairs, 3))
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    xy = rng.uniform(-0.5, 0.5, size=(n_pairs, n_points, 2))
+    z = rng.uniform(*TWO_VIEW_DEPTH, size=(n_pairs, n_points, 1))
+    xb = np.concatenate([xy * z, z], axis=-1)
+    xa = np.einsum("pij,pnj->pni", R, xb) + TWO_VIEW_BASELINE * t[:, None]
+    pa = xa[..., :2] / xa[..., 2:] + rng.normal(size=xy.shape) * TWO_VIEW_PIXEL
+    pb = xb[..., :2] / xb[..., 2:] + rng.normal(size=xy.shape) * TWO_VIEW_PIXEL
+    sr, st = TWO_VIEW_START
+    E0 = essential.essential_retract(
+        essential.EssentialMatrix(torch.from_numpy(R), torch.from_numpy(t)),
+        torch.from_numpy(rng.normal(size=(n_pairs, 5)) * np.array([sr] * 3 + [st] * 2)))
+    keys = np.arange(n_pairs, dtype=np.int64)
+    M = n_pairs * n_points
+    factors = [("EssentialMatrixFactor", np.repeat(keys, n_points)[:, None],
+                {"pA": pa.reshape(M, 2), "pB": pb.reshape(M, 2)},
+                np.full((M, 1, 1), 1.0 / TWO_VIEW_PIXEL))]
+    values = {"EssentialMatrix": (keys, (E0.R.numpy(), E0.t.numpy()))}
+    return values, factors, {"R": R, "t": t}
+
+
+def drive_positions(n_keyframes: int, rate_hz: int = 200, device: DeviceLike = "cuda"):
+    """The true positions of `imu_gps_drive(n_keyframes, rate_hz)`'s car at
+    its IMU rate: (times [S], positions [S, 3]) on `device`, S = (n_keyframes
+    - 1) * rate_hz samples over [0, n_keyframes - 1) s."""
+    sc = constant_twist(*DRIVE_TWIST, device=device)
+    ts = torch.arange((n_keyframes - 1) * rate_hz, dtype=torch.float64,
+                      device=sc.w.device) / rate_hz
+    return ts, sc.nav_state(ts).t
+
+
+def _info(n, sigma, d):
+    return np.broadcast_to(np.eye(d) / sigma, (n, d, d)).copy()
+
+
+def extra_factor_scenes(seed: int = 0):
+    """Small graphs (10-50 variables) of the extended geometry's remaining
+    factor types, from one numpy seed: name -> (values, factors) in the
+    numpy format of `utils/convert.py`. The measurements are the truth's
+    (noise-free), the starts the truth perturbed, so LM returns to it:
+
+      frobenius     a Rot3 chain (FrobeniusBetweenFactor) and its copies
+                    tied by FrobeniusFactor, a prior on rotation 0
+      karcher       10 rotations, BetweenRot3 edges, a KarcherMeanFactor10
+                    gauge instead of a prior
+      pose_priors   a Pose3 chain, PoseRotationPrior on pose 0 and
+                    PoseTranslationPrior on every pose
+      rotate        10 rotations, each with 5 RotateFactors and 5
+                    RotateDirectionsFactors
+      essential     a Pose3 chain with EssentialMatrixConstraints, a
+                    BetweenPose3 every third edge (the scale), a prior
+      reference     ReferenceFrameFactor: a Pose3 transform between 10
+                    global and 10 local Point3s, with priors on the points
+      planar        a Pose2 chain seeing known landmarks through
+                    PlanarProjectionFactor
+      range_bearing_3d  Pose3 chain and Point3 landmarks through
+                    RangeFactor(Pose3, Point3) and BearingFactor3D
+    """
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def rots(n, s=0.5):
+        return so3.expmap(torch.from_numpy(rng.normal(size=(n, 3)) * s)).numpy()
+
+    def perturb_R(R, s=0.05):
+        return np.einsum("nij,njk->nik", R, rots(len(R), s))
+
+    def chain(n):
+        xi = np.c_[rng.normal(size=(n, 3)) * 0.3, rng.normal(size=(n, 3)) * 2.0]
+        return _exp_np(xi)
+
+    n = 10
+    # frobenius
+    R = rots(n)
+    rel = np.einsum("nji,njk->nik", R[:-1], R[1:])
+    keys = np.arange(n)
+    out["frobenius"] = (
+        {"Rot3": (np.r_[keys, keys + n], np.concatenate([perturb_R(R), perturb_R(R)]))},
+        [("PriorRot3", keys[:1, None], R[:1], _info(1, 1e-3, 3)),
+         ("FrobeniusBetweenFactor", np.stack([keys[:-1], keys[1:]], 1), rel, _info(n - 1, 0.1, 9)),
+         ("FrobeniusFactor", np.stack([keys, keys + n], 1), None, _info(n, 0.1, 9)),
+         ("PriorRot3", (keys + n)[:, None], R, _info(n, 1.0, 3))])
+    # karcher
+    R = rots(n)
+    a, b = np.r_[keys[:-1], keys[:-2]], np.r_[keys[1:], keys[2:]]
+    out["karcher"] = (
+        {"Rot3": (keys, perturb_R(R))},
+        [("BetweenRot3", np.stack([a, b], 1), np.einsum("nji,njk->nik", R[a], R[b]),
+          _info(len(a), 0.05, 3)),
+         (f"KarcherMeanFactor{n}", keys[None], None, _info(1, 0.01, 3))])
+    # pose priors
+    R, t = chain(n)
+    a, b = keys[:-1], keys[1:]
+    out["pose_priors"] = (
+        {"Pose3": (keys, _compose_np((R, t), _exp_np(rng.normal(size=(n, 6)) * 0.05)))},
+        [("BetweenPose3", np.stack([a, b], 1), _between_np((R[a], t[a]), (R[b], t[b])),
+          _info(len(a), 0.1, 6)),
+         ("PoseRotationPrior", keys[:1, None], R[:1], _info(1, 1e-3, 3)),
+         ("PoseTranslationPrior", keys[:, None], t, _info(n, 0.5, 3))])
+    # rotate
+    R = rots(n)
+    z = rng.normal(size=(n, 5, 3))
+    p = np.einsum("nij,nkj->nki", R, z)
+    ks = np.repeat(keys, 5)[:, None]
+    out["rotate"] = (
+        {"Rot3": (keys, perturb_R(R, 0.2))},
+        [("RotateFactor", ks, {"p": p.reshape(-1, 3), "z": z.reshape(-1, 3)}, _info(n * 5, 0.01, 3)),
+         ("RotateDirectionsFactor", ks, {"p": p.reshape(-1, 3), "z": z.reshape(-1, 3)},
+          _info(n * 5, 0.01, 2))])
+    # essential constraint
+    R, t = chain(n + 2)
+    k2 = np.arange(n + 2)
+    a, b = k2[:-1], k2[1:]
+    rR, rt = _between_np((R[a], t[a]), (R[b], t[b]))
+    sc = a[::3]
+    out["essential"] = (
+        {"Pose3": (k2, _compose_np((R, t), _exp_np(rng.normal(size=(n + 2, 6)) * 0.02)))},
+        [("PriorPose3", k2[:1, None], (R[:1], t[:1]), _info(1, 1e-3, 6)),
+         ("EssentialMatrixConstraint", np.stack([a, b], 1),
+          (rR, rt / np.linalg.norm(rt, axis=1, keepdims=True)), _info(len(a), 0.01, 5)),
+         ("BetweenPose3", np.stack([sc, sc + 1], 1), (rR[sc], rt[sc]), _info(len(sc), 0.1, 6))])
+    # reference frame
+    T = _exp_np(rng.normal(size=(1, 6)) * 0.5)
+    loc = rng.normal(size=(n, 3)) * 2.0
+    glob = np.einsum("ij,nj->ni", T[0][0], loc) + T[1][0]
+    gk, lk, tk = keys, keys + n, 2 * n
+    out["reference"] = (
+        {"Point3": (np.r_[gk, lk], np.concatenate([glob, loc]) + rng.normal(size=(2 * n, 3)) * 0.05),
+         "Pose3": (np.array([tk]), _compose_np(T, _exp_np(rng.normal(size=(1, 6)) * 0.1)))},
+        [("PriorPoint3", np.r_[gk, lk][:, None], np.concatenate([glob, loc]), _info(2 * n, 0.01, 3)),
+         ("ReferenceFrameFactor", np.stack([gk, np.full(n, tk), lk], 1), None, _info(n, 0.05, 3))])
+    # planar projection: a robot driving along x, landmarks ahead of it
+    x = np.c_[np.arange(n) * 0.5, 0.1 * np.sin(np.arange(n)), 0.05 * np.cos(np.arange(n))]
+    Rbc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    lm = np.c_[rng.uniform(8, 12, 4 * n), rng.uniform(-3, 3, 4 * n), rng.uniform(0.5, 2.5, 4 * n)]
+    obs = np.repeat(keys, 4)
+    cal = np.array([400.0, 400.0, 0.0, 320.0, 240.0])
+    c, s = np.cos(x[obs, 2]), np.sin(x[obs, 2])
+    R3 = np.zeros((len(obs), 3, 3))
+    R3[:, 0, 0], R3[:, 0, 1], R3[:, 1, 0], R3[:, 1, 1], R3[:, 2, 2] = c, -s, s, c, 1.0
+    t3 = np.c_[x[obs, :2], np.zeros(len(obs))]
+    pc = np.einsum("nji,nj->ni", R3 @ Rbc, lm - t3)
+    uv = np.c_[cal[0] * pc[:, 0] / pc[:, 2] + cal[3], cal[1] * pc[:, 1] / pc[:, 2] + cal[4]]
+    a, b = keys[:-1], keys[1:]
+    rel = np.stack([np.asarray(pose2.between(torch.from_numpy(x[i]), torch.from_numpy(x[j])))
+                    for i, j in zip(a, b)])
+    out["planar"] = (
+        {"Pose2": (keys, x + rng.normal(size=x.shape) * np.array([0.05, 0.05, 0.01]))},
+        [("PriorPose2", keys[:1, None], x[:1], _info(1, 1e-3, 3)),
+         ("BetweenPose2", np.stack([a, b], 1), rel, _info(len(a), 0.1, 3)),
+         ("PlanarProjectionFactor", obs[:, None],
+          {"landmark": lm, "measured": uv, "cal": np.broadcast_to(cal, (len(obs), 5)).copy(),
+           "body_P_cam_R": np.broadcast_to(Rbc, (len(obs), 3, 3)).copy(),
+           "body_P_cam_t": np.zeros((len(obs), 3))}, _info(len(obs), 1.0, 2))])
+    # range and bearing in 3-D
+    R, t = chain(n)
+    pts = t[np.repeat(keys, 2)] + rng.normal(size=(2 * n, 3)) * 3.0
+    pk = n + np.arange(2 * n)
+    pl = np.r_[np.stack([2 * keys, 2 * keys + 1], 1).reshape(-1),
+               np.stack([2 * keys + 2, 2 * keys + 3], 1).reshape(-1) % (2 * n)]
+    po = np.r_[np.repeat(keys, 2), np.repeat(keys, 2)]
+    d = pts[pl] - t[po]
+    rng_m = np.linalg.norm(d, axis=1)
+    body = np.einsum("nji,nj->ni", R[po], d)
+    a, b = keys[:-1], keys[1:]
+    out["range_bearing_3d"] = (
+        {"Pose3": (keys, _compose_np((R, t), _exp_np(rng.normal(size=(n, 6)) * 0.02))),
+         "Point3": (pk, pts + rng.normal(size=pts.shape) * 0.1)},
+        [("PriorPose3", keys[:1, None], (R[:1], t[:1]), _info(1, 1e-3, 6)),
+         ("BetweenPose3", np.stack([a, b], 1), _between_np((R[a], t[a]), (R[b], t[b])),
+          _info(len(a), 0.05, 6)),
+         ("RangePose3Point3", np.stack([po, pk[pl]], 1), rng_m, _info(len(po), 0.05, 1)),
+         ("BearingPose3Point3", np.stack([po, pk[pl]], 1),
+          body / np.linalg.norm(body, axis=1, keepdims=True), _info(len(po), 0.01, 2))])
+    return out
