@@ -21,6 +21,7 @@
     python3 chip_smoke.py --init-only     phases 1-2, then phase 13; no result line
     python3 chip_smoke.py --robust-only   phases 1-2, then phase 14; no result line
     python3 chip_smoke.py --geometry-only phases 1-2, then phase 15; no result line
+    python3 chip_smoke.py --hybrid-only   phases 1-2, then phase 16; no result line
 
 Phases, in order; any failure raises and the script exits non-zero without
 a result line:
@@ -91,7 +92,7 @@ a result line:
              stream's ground truth, the final error beside a batch GN of the
              final graph from the iSAM2 estimate; gates: finite errors, no
              bad pivots, K2 and K4 launched; it saves the whole ISAM2 at
-             line 450 (phase 9 d))
+             line 500 (phase 9 d))
   7. smart   smart-factor BA through smart_levenberg_marquardt (dense
              library algebra, no bucket kernel, as in the JAX package): a
              ragged 20-camera / 500-track rig with a behind-camera and a
@@ -129,7 +130,7 @@ a result line:
              ISAM2.update and marginalize_leaves, live cliques (gate: at most
              the window's variables), launches per update, the window against
              a batch GN of the kept history; d) run c)'s checkpoint at line
-             450 loaded onto the card and fed to line 600: bitwise run
+             500 loaded onto the card and fed to line 600: bitwise run
              c)'s estimate, the file's bytes, save and load ms; e) the
              concurrent incremental pair against the batch pair over 30
              lines, lag 15, a synchronize every 15 updates (5e-3); f)
@@ -206,8 +207,8 @@ a result line:
              reckoning: the plan line, iterations, final error, ATE,
              launches per iteration; c) SubgraphSolver (linear/subgraph.py:
              the tree factored once through K4 / K3 / K1, applied through
-             K2 on every PCG step) on the sphere linearized at the chordal
-             estimate: PCG iterations, ms with the tree factor and an apply
+             K2 on every PCG step) on a 500-pose sphere (20 x 25 rings)
+             linearized at its perturbed start: PCG iterations, ms with the tree factor and an apply
              apart, the tree plan line, launches for a solve, the factor and
              an apply; against the multifrontal solve (1e-8 x max|x|; PCG
              at tol 1e-9, at most 2,000 iterations); d) the exact constrained dense LM (linear/qr.py) on
@@ -283,7 +284,25 @@ a result line:
              one host solve_qp and solve_lp timed; g) K4 / K3 / K1 / K2 against their plain versions
              at every bucket shape a)-f) gave them (d = 3, 5, 6, 7), float64
              within 1e-14
- 16. result  a `kernels` JSON line, the card line, then the last line
+ 16. hybrid  discrete and hybrid inference and the utilities, float64, after
+             phase 15: a) a 60-variable DiscreteFactorGraph (cards 2-4): MPE,
+             every marginal, k_best(10) card = CPU, and brute force over its
+             first 12 variables' joint table; b) the dense hybrid path on a
+             30-variable switching chain with 10 binary modes (M = 1,024 in
+             one batched Cholesky) card = CPU; c) eliminate_sparse on
+             city_stream(1000)'s graph at dead reckoning with its first 8 loop
+             closures binary hybrids: M = 256 hypotheses folded into each
+             bucket (one K1 / K3 / K4 and one K2 launch a bucket for all of
+             them), its plan, launches against one hypothesis's
+             multifrontal_solve and a Python loop over all 256, ms and busy
+             share; 8 hypotheses against their own multifrontal_solve, a
+             40-pose cut against the dense path on the CPU, the kernels at
+             every folded bucket shape; d) HybridSmoother over 100 Hybrid City
+             lines as linear slices (max_leaves 10) card = CPU; e)
+             run_hybrid_city (max_hypotheses 10) against the host engine on
+             the CPU, and a forking run; f) write_g2o / read_g2o, the solver
+             comparer on a 600-line City file, a timing span
+ 17. result  a `kernels` JSON line, the card line, then the last line
              {"ok": true, "device": {...}}
 
 Needs one CUDA device and the CUDA toolkit (nvcc); it fails without either,
@@ -352,8 +371,9 @@ ROUNDING_CHANGE = 1e-12
 CONTRACT_POSES = 60
 PROFILE_UPDATES = 25
 # run c) saves the whole ISAM2 at every CITY_PROGRESS lines: its save at
-# line 450 is the one phase 9 d) resumes from to CITY_LINES
-CITY_PROGRESS = 450
+# line 500 is the one phase 9 d) resumes from to CITY_LINES (at 450 until
+# PR 15: 150 lines resumed, ~17 s; cut to make room for phase 16)
+CITY_PROGRESS = 500
 # phase 9 (the iSAM2 family, float64 unless stated), on the same stream: a)
 # card = CPU over FAMILY_GATE_LINES lines (fixed lag FAMILY_GATE_LAG poses,
 # a checkpoint at FAMILY_GATE_CKPT); c) fixed-lag smoothing over
@@ -474,10 +494,13 @@ NAV_PROGRESS = 25
 # observations), LM of at most INIT_CAM_ITERS (cut from 10 to make room for
 # phase 14), the dense-oracle and card =
 # CPU gates (INIT_CAM_CUT_ITERS iterations) on INIT_CAM_CUT keyframes; c)
-# the subgraph PCG at tol INIT_SUBGRAPH_TOL and at most
-# INIT_SUBGRAPH_MAX_ITERS iterations (at its defaults, tol 1e-8 and 500
-# iterations, it stops 7.6e-6 x max|x| from the multifrontal solve; tol 1e-8
-# takes 834 iterations on an H100 and lands 5.3e-9 away, half the gate);
+# the subgraph PCG on sphere_rings(INIT_SUBGRAPH_SPHERE) at its start (cut
+# from the whole sphere at the chordal estimate, ~900 PCG steps and ~20 s of
+# a host-bound apply, to make room for phase 16) at tol INIT_SUBGRAPH_TOL
+# and at most INIT_SUBGRAPH_MAX_ITERS iterations (at its defaults, tol 1e-8
+# and 500 iterations, it stopped 7.6e-6 x max|x| from the multifrontal solve
+# on the whole sphere; tol 1e-8 took 834 iterations on an H100 and landed
+# 5.3e-9 away, half the gate);
 # the filters' card = CPU gate on
 # INIT_KF_CPU_TRACKS of the tracks (they are independent); f)
 # INIT_KF (tracks, steps) of the Kalman filter, INIT_EKF_STEPS of the EKF
@@ -502,6 +525,7 @@ INIT_CAM_CUT = 20
 INIT_CAM_CUT_ITERS = 4
 INIT_KF = (10_000, 1_000)
 INIT_KF_CPU_TRACKS = 100
+INIT_SUBGRAPH_SPHERE = (20, 25)
 INIT_SUBGRAPH_TOL = 1e-9
 INIT_SUBGRAPH_MAX_ITERS = 2000
 INIT_EKF_STEPS = 100
@@ -585,6 +609,45 @@ GEO_BASIS_N = 32
 GEO_BASIS_CUT = 10
 GEO_KERNEL_GATE = 1e-14
 
+# phase 16 (discrete and hybrid inference, float64, seed SEED): a) a
+# DiscreteFactorGraph of HYB_DISCRETE_VARS variables (cards 2-4; unary
+# factors, a chain, triplets within a window of four), MPE, every marginal
+# and k_best(HYB_K_BEST) card = CPU, and against brute force (the joint
+# table) over the factors of the first HYB_BRUTE_VARS variables; b) the
+# dense path on a switching chain of HYB_DENSE (3-dim variables, binary
+# modes): M = 2^modes assignments, card = CPU; c) city_stream(
+# HYB_CITY_POSES)'s graph at dead reckoning, its first HYB_SPARSE_LOOPS loop
+# closures binary hybrids (M = 2^loops) through eliminate_sparse's folded
+# plan, HYB_SPARSE_SAMPLES hypotheses against one multifrontal_solve each,
+# a Python loop of multifrontal_solve over HYB_LOOP_HYPOTHESES of them
+# timed (all 256: 25.7 s on an H100, PR 15 call 1, against 79.6 ms folded),
+# the HYB_SPARSE_CUT-pose cut against the dense path on the CPU; d)
+# HybridSmoother (max_leaves HYB_SMOOTHER_LEAVES) over the first
+# HYB_SMOOTHER_LINES lines of hybrid_city_stream(HYB_CITY_POSES, p_false_loop
+# HYB_FALSE_LOOPS) as linear slices, card = CPU; e) run_hybrid_city over its
+# first HYB_CITY_LINES lines (max_hypotheses HYB_CITY_HYPOTHESES) against the
+# host engine on the CPU, and HYB_FORK_LINES lines with ambiguous odometry;
+# f) the sphere through write_g2o / read_g2o, solver_comparer on a
+# HYB_COMPARER_LINES-line City file. Gates: card = CPU within HYB_GATE
+# (rel, or abs on log probabilities).
+HYB_DISCRETE_VARS = 60
+HYB_BRUTE_VARS = 12
+HYB_K_BEST = 10
+HYB_DENSE = (30, 10)
+HYB_CITY_POSES = 1000
+HYB_SPARSE_LOOPS = 8
+HYB_SPARSE_SAMPLES = 8
+HYB_SPARSE_CUT = 40
+HYB_LOOP_HYPOTHESES = 16
+HYB_SMOOTHER_LINES = 100
+HYB_SMOOTHER_LEAVES = 10
+HYB_FALSE_LOOPS = 0.1
+HYB_CITY_LINES = 100
+HYB_CITY_HYPOTHESES = 10
+HYB_FORK_LINES = 12
+HYB_COMPARER_LINES = 600
+HYB_GATE = 1e-9
+
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA kernel names in the profile)
     "partial_cholesky": ("gtsam_petercdev_torch/csrc/partial_cholesky.cu",
@@ -608,6 +671,9 @@ ROUTE_KERNEL = {"global": "partial_cholesky", "smem": "partial_cholesky_smem",
 
 
 T_START = time.perf_counter()
+# (B, nf, ns, d) the kernels were held against their plain versions at, in
+# float64 and float32, so far in this run (check_kernels)
+CHECKED_SHAPES = set()
 
 
 def log(msg):
@@ -721,8 +787,11 @@ def check_kernels(torch, mods, cases, timed, extras=True, errs_out=None):
     cases of one sweep (the buckets the routing gives that kernel in the two
     bench plans, each once, in plan order). extras: the indefinite buckets
     and the library composites too. errs_out: a dict that gets each dtype's
-    largest differences by kernel."""
+    largest differences by kernel. A case an earlier call of this run
+    checked (both dtypes) is not checked again (CHECKED_SHAPES)."""
     v2, v1, kernels = mods
+    repeat = [c for c in cases if c in CHECKED_SHAPES]
+    cases = [c for c in dict.fromkeys(cases) if c not in CHECKED_SHAPES]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     res = {k: {} for k in KERNELS}
     for dtype in (torch.float64, torch.float32):
@@ -843,7 +912,8 @@ def check_kernels(torch, mods, cases, timed, extras=True, errs_out=None):
                 r["k1_same_buckets_ms"] = event_ms(torch, sweep_1, 10)
             res[kname][name] = r
             del inputs
-        log(f"kernels {name} ({len(cases)} shapes checked, {n_smem} fit shared memory): "
+        log(f"kernels {name} ({len(cases)} shapes checked, {n_smem} fit shared memory, "
+            f"{len(repeat)} checked earlier in this run): "
             + "; ".join(
             f"{k} err {v[name]['max_abs_err']:.2e} ms {v[name]['ms']:.3f} "
             f"(device {v[name]['device_ms']}) plain {v[name]['plain_ms']:.3f} "
@@ -899,6 +969,7 @@ def check_kernels(torch, mods, cases, timed, extras=True, errs_out=None):
             log(f"{label} {(B, nf, ns, d)} {name}: K2 {k_ms:.4f} ms; library composite ms "
                 f"{c_ms:.4f} (baddbmm + solve_triangular; informational; agrees to rel {rel:.1e})")
             del ref, L, Linv, W, y, xs
+    CHECKED_SHAPES.update(cases)
     return res
 
 
@@ -1738,7 +1809,7 @@ def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
     """Phase 9: the iSAM2 family (leaf marginalization, Bayes-tree
     marginals, fixed-lag and concurrent smoothing, NonlinearISAM, engine
     checkpoints, a float32 run). `city`: phase 6 c)'s final tree, its
-    estimate and its checkpoint at line 450; without it (the
+    estimate and its checkpoint at line CITY_PROGRESS; without it (the
     --isam2-family-only run) that run is made here, unprofiled. `dev`: the
     device of every path but a)'s CPU reference (a rehearsal passes "cpu")."""
     import numpy as np
@@ -1927,7 +1998,7 @@ def run_isam2_family(torch, here, v1, city=None, dev="cuda"):
                                  f"launches {launches}")
         del fl, g, v, gn
 
-        # d) phase 6 c)'s checkpoint at line 450, onto the card, fed to
+        # d) phase 6 c)'s checkpoint at line CITY_PROGRESS, onto the card, fed to
         # the end: bitwise the uninterrupted run
         ck = city["checkpoint"]
         sync()
@@ -3088,10 +3159,13 @@ def run_init(torch, v1, here, dev="cuda"):
     del g_city, lago, lago_cpu, dr
     lap("b")
 
-    # c) the subgraph-preconditioned solve of the sphere linearized at the
-    # chordal estimate (with its prior: one variable type)
+    # c) the subgraph-preconditioned solve of sphere_rings(
+    # INIT_SUBGRAPH_SPHERE) (its prior: one variable type) linearized at its
+    # perturbed start
     lam = 1e-6
-    lg = g_init.linearize(chordal)
+    va_s, fa_s = synthetic.sphere_rings(*INIT_SUBGRAPH_SPHERE, seed=SEED)
+    g_sub = convert.graph_from_arrays(fa_s, device=dev)
+    lg = g_sub.linearize(convert.values_from_arrays(va_s, device=dev))
     t0 = time.perf_counter()
     sol = SubgraphSolver(lg)
     setup_s = time.perf_counter() - t0
@@ -3131,7 +3205,7 @@ def run_init(torch, v1, here, dev="cuda"):
 
     factor_ms = med_ms(lambda: sol.factor(lam))
     apply_ms = med_ms(lambda: elimination.multifrontal_apply(sol.maps, chol, r))
-    _, maps_sph = elimination._graph_plan(g_init, lg)
+    _, maps_sph = elimination._graph_plan(g_sub, lg)
     x_mf = elimination.multifrontal_solve(maps_sph, tuple((lb.A, lb.b) for lb in lg.batches), lam)
     mf_ms = med_ms(lambda: elimination.multifrontal_solve(
         maps_sph, tuple((lb.A, lb.b) for lb in lg.batches), lam))
@@ -3151,7 +3225,7 @@ def run_init(torch, v1, here, dev="cuda"):
         f"an apply {apply_launches}; bad pivots {er_c.bad}; plain versions {dict(plain_c)}")
     if not (sub_gap <= 1e-8 and er_c.bad == 0 and not (dev == "cuda" and plain_c)):
         raise AssertionError("init c): the subgraph solve failed its gates")
-    del sol, chol, lg, x_mf
+    del sol, chol, lg, x_mf, g_sub
     lap("c")
 
     # d) the exact constrained dense LM: the first INIT_DENSE_POSES poses of
@@ -4353,6 +4427,542 @@ def run_geometry(torch, v1, dev="cuda"):
     return out
 
 
+# --- phase 16: discrete and hybrid inference, the utilities -----------------------------
+
+
+def city_lines_parsed(lines):
+    """City-format EDGE2 lines as (keyS, keyT, [candidate measurements])."""
+    import numpy as np
+
+    out = []
+    for ln in lines:
+        p = ln.split()
+        out.append((int(p[1]), int(p[3]), [np.array([float(v) for v in p[6 + 3 * i : 9 + 3 * i]])
+                                            for i in range(int(p[5]))]))
+    return out
+
+
+def city_jacobians(torch, parsed, n_poses, dev):
+    """Every (line, candidate) Pose2 between factor of `parsed`, and a prior
+    on pose 0, linearized at dead reckoning (each odometry line's first
+    candidate composed), unwhitened, on `dev`: (prior (A, b), between (A_S,
+    A_T, b) with one row per candidate in line order)."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.utils import convert, synthetic
+
+    x = np.zeros((n_poses, 3))
+    for a, b, ms in parsed:
+        if b == a + 1:
+            x[b] = synthetic.pose2_compose_np(x[a], ms[0])
+    keys = np.array([[a, b] for a, b, ms in parsed for _ in ms], dtype=np.int64)
+    meas = np.stack([m for _, _, ms in parsed for m in ms])
+    g = convert.graph_from_arrays(
+        [("PriorPose2", np.zeros((1, 1), dtype=np.int64), np.zeros((1, 3)), np.eye(3)[None]),
+         ("BetweenPose2", keys, meas, np.broadcast_to(np.eye(3), (len(keys), 3, 3)).copy())],
+        device=dev)
+    lg = g.linearize(convert.values_from_arrays({"Pose2": (np.arange(n_poses), x)}, device=dev))
+    (pA,), pb = lg.batches[0].A, lg.batches[0].b
+    (sA, tA), bb = lg.batches[1].A, lg.batches[1].b
+    return (pA[0], pb[0]), (sA, tA, bb)
+
+
+def hybrid_city_slices(torch, parsed, jac, n_loop_modes, dev, disc_base=10_000):
+    """One HybridGaussianFactorGraph per line of `parsed` (the prior in the
+    first), whitened at the City10000 harness's sigmas: an odometry line of
+    one candidate a Gaussian (odometry sigmas), of several a hybrid term with
+    a component per candidate; of the loop closures the first `n_loop_modes`
+    a binary hybrid (open loop, sigmas 10, against accept, the odometry
+    sigmas), the rest a Gaussian under the loop sigmas (the harness's), as in
+    models/hybrid_city. Discrete key of line i: disc_base + i."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.hybrid.hybrid import HybridGaussianFactorGraph
+    from gtsam_petercdev_torch.utils.synthetic import CITY_SIGMAS
+
+    (pA, pb), (sA, tA, bb) = jac
+    pose_s, open_s = np.asarray(CITY_SIGMAS), np.full(3, 10.0)
+    w = {k: torch.as_tensor(1.0 / s, dtype=torch.float64, device=dev)
+         for k, s in (("pose", pose_s), ("open", open_s), ("prior", np.full(3, 1e-4)))}
+    ln = {"pose": -float(np.log(pose_s).sum()), "open": -float(np.log(open_s).sum())}
+    slices, row, n_modes = [], 0, 0
+    for i, (a, b, ms) in enumerate(parsed):
+        g = HybridGaussianFactorGraph(device=dev)
+        if i == 0:
+            g.add_continuous([(0, 3)], [pA * w["prior"][:, None]], pb * w["prior"])
+        kd = [(a, 3), (b, 3)]
+        rows = range(row, row + len(ms))
+        row += len(ms)
+        comp = lambda r, s: (sA[r] * w[s][:, None], tA[r] * w[s][:, None], bb[r] * w[s])
+        if b == a + 1 and len(ms) == 1:
+            A1, A2, rhs = comp(rows[0], "pose")
+            g.add_continuous(kd, [A1, A2], rhs)
+        elif b == a + 1 or n_modes < n_loop_modes:
+            pairs = ([(r, "pose") for r in rows] if b == a + 1
+                     else [(rows[0], "open"), (rows[0], "pose")])
+            cs = [comp(r, s) for r, s in pairs]
+            g.add_hybrid(kd, [(disc_base + i, len(cs))], [torch.stack([c[0] for c in cs]),
+                                                          torch.stack([c[1] for c in cs])],
+                         torch.stack([c[2] for c in cs]), log_norm=[ln[s] for _, s in pairs])
+            n_modes += b != a + 1
+        else:
+            A1, A2, rhs = comp(rows[0], "open")
+            g.add_continuous(kd, [A1, A2], rhs)
+        slices.append(g)
+    return slices
+
+
+def merged(slices, dev):
+    """The slices' terms in one HybridGaussianFactorGraph."""
+    from gtsam_petercdev_torch.hybrid.hybrid import HybridGaussianFactorGraph
+
+    g = HybridGaussianFactorGraph(device=dev)
+    for s in slices:
+        g.gaussians += s.gaussians
+        g.discrete += s.discrete
+        g.cont_dims.update(s.cont_dims)
+        g.disc_cards.update(s.disc_cards)
+    return g
+
+
+def run_hybrid(torch, v1, here, dev="cuda"):
+    """Phase 16 (float64): a) a discrete factor graph: MPE, every marginal,
+    k-best, card = CPU and brute force; b) the dense hybrid path at M = 1,024
+    in one batched Cholesky, card = CPU; c) eliminate_sparse on the City
+    graph with M = 256 hypotheses folded into each bucket: plan, launches,
+    ms and busy share, gates against one multifrontal solve a hypothesis,
+    the dense path on a cut, and the kernels at every folded bucket shape;
+    d) HybridSmoother over Hybrid City lines, card = CPU; e) run_hybrid_city
+    against the host engine on the CPU, and a short forking run; f) g2o
+    write / read, the solver comparer, a timed span."""
+    import numpy as np
+
+    from gtsam_petercdev_torch.discrete import search
+    from gtsam_petercdev_torch.discrete.discrete import DiscreteFactorGraph
+    from gtsam_petercdev_torch.hybrid.hybrid import (HybridGaussianFactorGraph,
+                                                     SparseHypotheses, eliminate_sparse)
+    from gtsam_petercdev_torch.hybrid.incremental import HybridSmoother
+    from gtsam_petercdev_torch.inference import elimination, kernels
+    from gtsam_petercdev_torch.models.hybrid_city import run_hybrid_city
+    from gtsam_petercdev_torch.ops import cholesky_v2 as v2
+    from gtsam_petercdev_torch.utils import convert, dataset, solver_comparer, synthetic, timing
+
+    out, secs, launches = {}, {}, {k: 0 for k in KERNELS}
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    card = card_line() if dev == "cuda" else "cpu"
+    t_phase = t_sub = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    work = os.path.join(here, "gtsam_petercdev_torch", "_build")
+    os.makedirs(work, exist_ok=True)
+
+    def lap(key):
+        nonlocal t_sub
+        secs[key] = time.perf_counter() - t_sub
+        log(f"hybrid {key}) {secs[key]:.1f} s on {card}")
+        t_sub = time.perf_counter()
+
+    def count_launches():
+        """The launches since the last reset, added to the phase's total;
+        the counters are reset after the read."""
+        got = dict(v1.launch_counts())
+        for k, x in got.items():
+            launches[k] += x
+        v1.reset_launch_counts()
+        return got
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
+
+    # a) a discrete factor graph: a chain and triplets within a window of four
+    n = HYB_DISCRETE_VARS
+    cards = rng.integers(2, 5, size=n)
+    facs = [([(i, int(cards[i]))], rng.uniform(0.1, 1.0, cards[i])) for i in range(n)]
+    facs += [([(i, int(cards[i])), (i + 1, int(cards[i + 1]))],
+              rng.uniform(0.1, 1.0, (cards[i], cards[i + 1]))) for i in range(n - 1)]
+    for i in range(0, n - 3, 2):
+        ks = (i, i + 1 + int(rng.integers(2)), i + 3)
+        facs.append(([(k, int(cards[k])) for k in ks], rng.uniform(0.1, 1.0, [cards[k] for k in ks])))
+    # k_best's best-first bound is the JAX package's (a product of per-factor
+    # maxima): on the whole graph it expands past 20,000 nodes, so it runs
+    # on the subgraph of the first HYB_BRUTE_VARS variables, which brute
+    # force checks too (their joint table on the card)
+    nb = HYB_BRUTE_VARS
+    sub_facs = [f for f in facs if max(k for k, _ in f[0]) < nb]
+    res = {}
+    for d_ in dict.fromkeys((dev, "cpu")):
+        g = convert.discrete_graph_from_arrays(facs, device=d_)
+        t0 = time.perf_counter()
+        mpe = g.optimize()
+        marg = [g.marginal(k).cpu().numpy() for k in range(n)]
+        t1 = time.perf_counter()
+        kb = search.k_best(convert.discrete_graph_from_arrays(sub_facs, device=d_), HYB_K_BEST)
+        res[d_] = dict(mpe=mpe, marg=marg, kb=kb, ms=(t1 - t0) * 1e3,
+                       kb_ms=(time.perf_counter() - t1) * 1e3)
+    a_, b_ = res[dev], res["cpu"]
+    marg_gap = max(float(np.abs(x - y).max()) for x, y in zip(a_["marg"], b_["marg"]))
+    kb_gap = max(abs(x.value - y.value) / y.value for x, y in zip(a_["kb"], b_["kb"]))
+    sub = convert.discrete_graph_from_arrays(sub_facs, device=dev)
+    joint = sub.joint().table
+    top = torch.topk(joint.reshape(-1), HYB_K_BEST)
+    idx = np.stack(np.unravel_index(top.indices.cpu().numpy(), joint.shape), axis=1)
+    brute_marg = max(float((sub.marginal(k) - joint.sum(dim=tuple(j for j in range(nb) if j != k))
+                            / joint.sum()).abs().max()) for k in range(nb))
+    brute_ok = (sub.optimize() == dict(enumerate(int(v) for v in idx[0]))
+                and [s.assignment for s in a_["kb"]]
+                == [dict(enumerate(int(v) for v in r)) for r in idx]
+                and max(abs(s.value - float(v)) / float(v) for s, v in zip(a_["kb"], top.values))
+                <= 1e-12 and brute_marg <= 1e-12)
+    out["a"] = dict(variables=n, factors=len(facs), cards=np.bincount(cards).tolist(),
+                    ms_card=a_["ms"], ms_cpu=b_["ms"], k_best_ms=a_["kb_ms"],
+                    marginal_abs=marg_gap, k_best_rel=kb_gap, brute_vars=nb,
+                    brute_joint=int(joint.numel()), brute_marginal_abs=brute_marg)
+    log(f"hybrid a) DiscreteFactorGraph of {n} variables (cards 2-4), {len(facs)} factors: MPE "
+        f"and every marginal {a_['ms']:.1f} ms on the card ({b_['ms']:.1f} ms CPU); card = CPU: "
+        f"MPE {a_['mpe'] == b_['mpe']}, marginals {marg_gap:.3e}; on the first {nb} variables "
+        f"({len(sub_facs)} factors, {joint.numel()} joint entries): k_best({HYB_K_BEST}) "
+        f"{a_['kb_ms']:.1f} ms (host), card = CPU values rel {kb_gap:.3e}; brute force (the "
+        f"joint table on the card): MPE, top-{HYB_K_BEST} and marginals "
+        f"{'agree' if brute_ok else 'DIFFER'} (marginals {brute_marg:.3e})")
+    if not (a_["mpe"] == b_["mpe"] and marg_gap <= 1e-12 and kb_gap <= 1e-12
+            and [s.assignment for s in a_["kb"]] == [s.assignment for s in b_["kb"]] and brute_ok):
+        raise AssertionError("hybrid a): the discrete graph failed its gates")
+    del res, a_, b_, sub, joint
+    lap("a")
+
+    # b) the dense path: a switching chain of 3-dim linear variables
+    nv, nm = HYB_DENSE
+    mode_at = set(np.linspace(0, nv - 2, nm).round().astype(int).tolist())
+    th = rng.uniform(-0.5, 0.5, nv)
+    steps = rng.normal(size=(nv, 2, 3))
+
+    def dense_graph(d_):
+        g = HybridGaussianFactorGraph(device=d_)
+        g.add_continuous([(0, 3)], [10.0 * np.eye(3)], np.zeros(3))
+        for t in range(nv):
+            g.add_continuous([(t, 3)], [0.3 * np.eye(3)], 0.3 * rng_b.normal(size=3))
+        for t in range(nv - 1):
+            c, s = np.cos(th[t]), np.sin(th[t])
+            R = -np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+            if t in mode_at:
+                g.add_hybrid([(t, 3), (t + 1, 3)], [(1000 + t, 2)], [np.stack([R, R]),
+                             np.stack([np.eye(3)] * 2)], steps[t], log_norm=[0.0, np.log(0.5)])
+                g.add_discrete([(1000 + t, 2)], [0.5, 0.5])
+            else:
+                g.add_continuous([(t, 3), (t + 1, 3)], [R, np.eye(3)], steps[t, 0])
+        return g
+
+    res = {}
+    for d_ in dict.fromkeys((dev, "cpu")):
+        rng_b = np.random.default_rng(SEED + 1)
+        g = dense_graph(d_)
+        g.eliminate()
+        sync()
+        t0 = time.perf_counter()
+        bn = g.eliminate()
+        sync()
+        res[d_] = (bn, (time.perf_counter() - t0) * 1e3)
+    (bn_c, ms_c), (bn_h, ms_h) = res[dev], res["cpu"]
+    lp_gap = float((bn_c.log_probs.cpu() - bn_h.log_probs).abs().max())
+    x_gap = rel(bn_c.solutions, bn_h.solutions)
+    M_b = bn_c.log_probs.shape[0]
+    out["b"] = dict(variables=nv, D=3 * nv, modes=nm, M=M_b, ms_card=ms_c, ms_cpu=ms_h,
+                    log_p_abs=lp_gap, x_rel=x_gap, mpe_p=float(torch.exp(bn_c.log_probs.max())))
+    log(f"hybrid b) dense path: {nv} variables of dim 3 (D = {3 * nv}), {nm} binary modes, M = "
+        f"{M_b} assignments in one batched Cholesky: {ms_c:.2f} ms on the card ({ms_h:.2f} ms "
+        f"CPU); card = CPU: log p {lp_gap:.3e} (abs), x {x_gap:.3e} (rel); MPE probability "
+        f"{out['b']['mpe_p']:.6f}")
+    if not (M_b == 2 ** nm and lp_gap <= HYB_GATE and x_gap <= HYB_GATE
+            and bn_c.optimize()[0] == bn_h.optimize()[0]):
+        raise AssertionError("hybrid b): the dense path failed its gates")
+    del res, bn_c, bn_h
+    lap("b")
+
+    # c) the sparse path: City's graph at dead reckoning, its first loop
+    # closures binary hybrids, every hypothesis through the folded plan
+    lines, _ = synthetic.city_stream(HYB_CITY_POSES, seed=SEED)
+    parsed = city_lines_parsed(lines)
+
+    def city_hybrid(parsed_, n_poses, d_):
+        return merged(hybrid_city_slices(torch, parsed_, city_jacobians(torch, parsed_, n_poses, d_),
+                                         HYB_SPARSE_LOOPS, d_), d_)
+
+    t0 = time.perf_counter()
+    g = city_hybrid(parsed, HYB_CITY_POSES, dev)
+    dkeys, asg = g._asg_array(None)
+    sp = SparseHypotheses(g, asg)
+    plan_s = time.perf_counter() - t0
+    M, d = sp.M, sp.plan.d
+    routes = [(elimination.bucket_route(bm, d, 8), M * bm.B, bm.nf, bm.ns) for bm in sp.maps.buckets]
+    pool_bytes = M * (sp.maps.n_blocks + 1) * d * d * 8
+    log(f"hybrid c) City graph: {HYB_CITY_POSES} poses (D = {3 * HYB_CITY_POSES}), "
+        f"{len(g.gaussians)} terms, {len(dkeys)} loop closures as binary hybrids: M = {M}; "
+        f"graph and plan {plan_s:.1f} s (host); plan {sp.plan.stats()} {len(sp.maps.buckets)} "
+        f"buckets; folded (route, M*B, nf, ns): {routes}; block pool {pool_bytes / 2**20:.1f} MiB")
+    with counting_plain() as plain_c:
+        sp.solve()
+        sync()
+        v1.reset_launch_counts()
+        t0 = time.perf_counter()
+        xs, Es, lds = sp.solve()
+        sync()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        folded = count_launches()
+    # the profiled solves are not counted
+    prof = profile_once(torch, sp.solve) if dev == "cuda" else None
+    # one hypothesis's multifrontal_solve: its launches, and the gates
+    v1.reset_launch_counts()
+    x1, st1 = elimination.multifrontal_solve(sp.maps, sp.hypothesis(0), 1e-10, return_logdet=True)
+    sync()
+    single = count_launches()
+
+    def one(h):
+        x_, st = elimination.multifrontal_solve(sp.maps, sp.hypothesis(h), 1e-10, return_logdet=True)
+        return x_, st
+
+    gaps = []
+    for h in sorted(rng.choice(M, size=min(HYB_SPARSE_SAMPLES, M), replace=False).tolist()):
+        x_, st = one(h)
+        gaps.append((h, rel(x_.reshape(-1)[sp.flat], xs[h]),
+                     abs(float(sp.energy(x_.expand(M, -1, -1))[h]) - float(Es[h])) / abs(float(Es[h])),
+                     abs(float(st["logdet"]) - float(lds[h])) / abs(float(lds[h]))))
+    count_launches()
+    # the solves one hypothesis at a time (a Python loop), once, over the
+    # first HYB_LOOP_HYPOTHESES hypotheses (each takes the folded solve's
+    # launches; the whole loop is M / HYB_LOOP_HYPOTHESES times as long)
+    n_loop = min(HYB_LOOP_HYPOTHESES, M)
+    sync()
+    t0 = time.perf_counter()
+    for h in range(n_loop):
+        one(h)
+    sync()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    looped = count_launches()
+    # the dense path of b)'s code on a cut, on the CPU
+    cut = [(a, b, ms) for a, b, ms in parsed if a < HYB_SPARSE_CUT and b < HYB_SPARSE_CUT]
+    gc_card, gc_cpu = (city_hybrid(cut, HYB_SPARSE_CUT, d_) for d_ in (dev, "cpu"))
+    with counting_plain() as plain_cut:
+        bc = eliminate_sparse(gc_card)
+    count_launches()
+    bh = gc_cpu.eliminate()
+    cut_gap = float((bc.log_probs.cpu() - bh.log_probs).abs().max())
+    # the kernels at every folded bucket shape
+    cases = sorted({(M * bm.B, bm.nf, bm.ns, d) for bm in sp.maps.buckets})
+    errs = {}
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        check_kernels(torch, (v2, v1, kernels), cases, {"float64": {}, "float32": {}},
+                      extras=False, errs_out=errs)
+    check_s = time.perf_counter() - t0
+    worst = tuple(max(g_[i] for g_ in gaps) for i in (1, 2, 3))
+    out["c"] = dict(poses=HYB_CITY_POSES, D=3 * HYB_CITY_POSES, terms=len(g.gaussians), M=M,
+                    plan=sp.plan.stats(), buckets=len(sp.maps.buckets), routes=routes,
+                    pool_bytes=pool_bytes, host_s=plan_s, solve_ms=solve_ms,
+                    busy_ms=prof[0] if prof else None, cuda_kernels=prof[1] if prof else None,
+                    launches_folded=folded, launches_single=single, launches_loop=looped,
+                    loop_hypotheses=n_loop, loop_ms=loop_ms, samples=gaps, cut_poses=HYB_SPARSE_CUT,
+                    cut_M=int(bc.log_probs.shape[0]), cut_log_p_abs=cut_gap,
+                    kernel_shapes=cases, kernel_max_abs_err=errs, kernel_check_s=check_s,
+                    plain_calls=dict(plain_c))
+    busy = (f"{prof[0]:.3f} ms busy ({100.0 * prof[0] / solve_ms:.1f}%), {prof[1]} CUDA kernels"
+            if prof else "busy not measured")
+    log(f"hybrid c) folded solve of M = {M}: {solve_ms:.3f} ms ({busy}); launches {folded}; one "
+        f"hypothesis's multifrontal_solve {single}; a Python loop over {n_loop} of the {M} "
+        f"hypotheses {loop_ms:.1f} ms ({loop_ms / n_loop:.3f} ms a hypothesis), launches {looped}; {len(gaps)} sampled hypotheses against their own "
+        f"multifrontal_solve: x {worst[0]:.3e}, E {worst[1]:.3e}, logdet {worst[2]:.3e} (rel); "
+        f"the {HYB_SPARSE_CUT}-pose cut (M = {out['c']['cut_M']}) card sparse against CPU "
+        f"dense log p {cut_gap:.3e}; {len(cases)} folded bucket shapes, kernels against plain "
+        f"versions {errs} ({check_s:.1f} s); plain versions on the card {dict(plain_c)}")
+    if not (all(g_ <= HYB_GATE for g_ in worst) and cut_gap <= HYB_GATE
+            and (dev != "cuda" or (folded == single and not plain_c and not plain_cut
+                                   and all(looped[k] == n_loop * single[k] for k in KERNELS)
+                                   and max(errs["float64"].values()) <= GEO_KERNEL_GATE))):
+        raise AssertionError("hybrid c): the folded sparse path failed its gates")
+    del g, sp, xs, Es, lds, gc_card, gc_cpu
+    lap("c")
+
+    # d) HybridSmoother over Hybrid City lines as linear slices
+    hlines, _, truth = synthetic.hybrid_city_stream(HYB_CITY_POSES, seed=SEED, p_ambiguous=0.0,
+                                                    p_false_loop=HYB_FALSE_LOOPS)
+    hparsed = city_lines_parsed(hlines[:HYB_SMOOTHER_LINES])
+    n_sm = 1 + max(b for _, b, _ in hparsed)
+    res, d_launches = {}, None
+    for d_ in dict.fromkeys((dev, "cpu")):
+        slices = hybrid_city_slices(torch, hparsed, city_jacobians(torch, hparsed, n_sm, d_),
+                                    len(hparsed), d_)
+        sm = HybridSmoother(max_leaves=HYB_SMOOTHER_LEAVES, device=d_)
+        ms_, cross = [], None
+        v1.reset_launch_counts()
+        with counting_plain() as plain_d:
+            for i, s in enumerate(slices):
+                sync()
+                t0 = time.perf_counter()
+                sm.update(s)
+                sync()
+                ms_.append((time.perf_counter() - t0) * 1e3)
+                if cross is None and sm.graph._cont_offsets()[1] > sm.dense_dim_limit:
+                    cross = i
+        if d_ == "cuda":
+            d_launches = count_launches()
+            if plain_d:
+                raise AssertionError(f"hybrid d): a plain version ran on the card: {plain_d}")
+        res[d_] = (sm.optimize(), np.asarray(ms_), cross, int(sm._hyp.shape[0]))
+    (mpe_c, x_c), ms_c, cross, live = res[dev]
+    (mpe_h, x_h), ms_h, _, _ = res["cpu"]
+    traj_gap = rel(torch.cat([x_c[k].cpu() for k in sorted(x_h)]),
+                   torch.cat([x_h[k] for k in sorted(x_h)]))
+    loops_true = [bool(truth["loop_true"][i]) for i, (a, b, _) in enumerate(hparsed) if b != a + 1]
+    choice = [mpe_c[10_000 + i] for i, (a, b, _) in enumerate(hparsed) if b != a + 1]
+    n_false = int((~truth["loop_true"][: len(hparsed)]).sum())
+    out["d"] = dict(lines=len(hparsed), poses=n_sm, modes=len(choice), max_leaves=HYB_SMOOTHER_LEAVES,
+                    live=live, sparse_from_update=cross, ms_card=stats_ms(ms_c), ms_cpu=stats_ms(ms_h),
+                    dense_ms_mean=float(ms_c[:cross].mean()) if cross else None,
+                    sparse_ms_mean=float(ms_c[cross:].mean()) if cross is not None else None,
+                    traj_rel=traj_gap, loops_accepted_true=sum(c == 1 and t for c, t in zip(choice, loops_true)),
+                    loops_true=sum(loops_true), launches=d_launches)
+    log(f"hybrid d) HybridSmoother (max_leaves {HYB_SMOOTHER_LEAVES}) over {len(hparsed)} Hybrid "
+        f"City lines ({n_sm} poses, {len(choice)} loop modes, {n_false} false): ms per update on the "
+        f"card {out['d']['ms_card']}, CPU {out['d']['ms_cpu']}; the dense limit ("
+        f"{sm.dense_dim_limit} dims) crossed at update {cross} (dense mean "
+        f"{out['d']['dense_ms_mean']} ms, sparse mean {out['d']['sparse_ms_mean']} ms); MPE "
+        f"card = CPU {mpe_c == mpe_h}, trajectory {traj_gap:.3e} (rel); true loops accepted "
+        f"{out['d']['loops_accepted_true']} of {out['d']['loops_true']}; launches on the card "
+        f"{d_launches}")
+    if not (mpe_c == mpe_h and traj_gap <= HYB_GATE and (
+            dev != "cuda" or cross is None or d_launches["backsolve_bucket"] > 0)):
+        raise AssertionError("hybrid d): the smoother failed its gates")
+    del res
+    lap("d")
+
+    # e) Hybrid City on the card against the host engine on the CPU
+    path = os.path.join(work, "hybrid_city_stream.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(hlines[:HYB_CITY_LINES]) + "\n")
+    runs = {}
+    for d_, be in ((dev, "torch"), ("cpu", "numpy")):
+        with counting_plain() as plain_e:
+            v1.reset_launch_counts()
+            runs[be] = run_hybrid_city(path, HYB_CITY_LINES, max_hypotheses=HYB_CITY_HYPOTHESES,
+                                       progress=0, device=d_, engine_backend=be)
+            if d_ == "cuda":
+                e_launches = count_launches()
+        if d_ == "cuda" and plain_e:
+            raise AssertionError(f"hybrid e): a plain version ran on the card: {plain_e}")
+    rc, rh = runs["torch"], runs["numpy"]
+    traj_gap = float(np.abs(rc["traj"] - rh["traj"]).max())
+    post_gap = float(np.abs(np.asarray(rc["posterior"]) - np.asarray(rh["posterior"])).max())
+    n_poses = rc["poses"]
+    gt_ = synthetic.city_stream(HYB_CITY_POSES, seed=SEED)[1][:n_poses]
+    ate = float(np.sqrt(np.mean(np.sum((rc["traj"][:, :2] - gt_[:, :2]) ** 2, axis=1))))
+    lt = [bool(truth["loop_true"][i]) for i, ln in enumerate(hlines[:HYB_CITY_LINES])
+          if int(ln.split()[3]) != int(ln.split()[1]) + 1]
+    right = sum((c == 1) == t for c, t in zip(rc["choices"], lt))
+    # a short run with ambiguous odometry lines: forks through the serializer
+    flines, _, _ = synthetic.hybrid_city_stream(HYB_CITY_POSES, seed=SEED, p_ambiguous=0.15,
+                                                p_false_loop=HYB_FALSE_LOOPS)
+    fpath = os.path.join(work, "hybrid_city_forks.txt")
+    with open(fpath, "w") as f:
+        f.write("\n".join(flines[:HYB_FORK_LINES]) + "\n")
+    fr = run_hybrid_city(fpath, HYB_FORK_LINES, max_hypotheses=HYB_CITY_HYPOTHESES, progress=0,
+                         device=dev)
+    n_amb = sum(len(ln.split()) > 9 for ln in flines[:HYB_FORK_LINES])
+    out["e"] = dict(lines=rc["lines"], poses=n_poses, modes=rc["modes"], max_hypotheses=HYB_CITY_HYPOTHESES,
+                    live=rc["live_hypotheses"], p50_ms=rc["step_ms_p50"], p90_ms=rc["step_ms_p90"],
+                    mean_ms=rc["step_ms_mean"], total_s=rc["total_s"], host_total_s=rh["total_s"],
+                    host_p50_ms=rh["step_ms_p50"], updates_per_line=rc["updates_per_line"],
+                    forks=rc["forks"], accept_frac=rc["best_loop_accept_frac"],
+                    loop_choices_right=right, loops=len(lt), ate_m=ate, traj_abs=traj_gap,
+                    posterior_abs=post_gap, launches=e_launches if dev == "cuda" else None,
+                    fork_run=dict(lines=HYB_FORK_LINES, ambiguous=n_amb, forks=fr["forks"],
+                                  live=fr["live_hypotheses"], posterior=fr["posterior"]))
+    log(f"hybrid e) run_hybrid_city over {rc['lines']} lines ({n_poses} poses, {rc['modes']} loop "
+        f"modes, max_hypotheses {HYB_CITY_HYPOTHESES}) on the card: {rc['total_s']:.1f} s, ms "
+        f"per line p50 {rc['step_ms_p50']:.1f} p90 {rc['step_ms_p90']:.1f}, "
+        f"{rc['updates_per_line']:.2f} ISAM2 updates a line, {rc['forks']} forks; best "
+        f"hypothesis: loops accepted {rc['best_loop_accept_frac']:.3f}, {right} of {len(lt)} "
+        f"loop choices right, ATE {ate:.4f} m; against the host engine on the CPU ("
+        f"{rh['total_s']:.1f} s): choices equal {rc['choices'] == rh['choices']}, trajectory "
+        f"{traj_gap:.3e}, posterior {post_gap:.3e}; forking run: {HYB_FORK_LINES} lines with "
+        f"{n_amb} ambiguous odometry lines, {fr['forks']} forks, {fr['live_hypotheses']} live, "
+        f"posterior {['%.6f' % p for p in fr['posterior']]}")
+    if not (rc["choices"] == rh["choices"] and traj_gap <= 1e-6 and post_gap <= 1e-6
+            and fr["live_hypotheses"] == min(2 ** fr["modes"], HYB_CITY_HYPOTHESES)
+            and abs(sum(fr["posterior"]) - 1.0) <= 1e-9):
+        raise AssertionError("hybrid e): Hybrid City failed its gates")
+    lap("e")
+
+    # f) g2o write / read, the solver comparer, a timed span
+    va, fa = synthetic.sphere_rings(N_RINGS, N_PER_RING, seed=SEED)
+    g64 = convert.graph_from_arrays(fa, device=dev)
+    v64 = convert.values_from_arrays(va, device=dev)
+    gpath = os.path.join(work, "sphere.g2o")
+    timing.tictoc_reset()
+    with timing.tic("write_g2o"):
+        dataset.write_g2o(g64, v64, gpath)
+    with timing.tic("read_g2o"):
+        _, rv = dataset.read_g2o(gpath, is3D=True, device=dev)
+    e0, e1 = float(g64.error(v64)), float(g64.error(rv))
+    span = timing.tictoc_get("read_g2o")
+    cpath = os.path.join(work, "city.g2o")
+    clines = city_lines_parsed(synthetic.city_stream(3687, seed=SEED)[0][:HYB_COMPARER_LINES])
+    n_c = 1 + max(b for _, b, _ in clines)
+    xdr = np.zeros((n_c, 3))
+    edges = []
+    for a, b, ms in clines:
+        if b == a + 1:
+            xdr[b] = synthetic.pose2_compose_np(xdr[a], ms[0])
+        info = 1.0 / np.square(synthetic.CITY_SIGMAS if b == a + 1 else (10.0, 10.0, 10.0))
+        edges.append(f"EDGE_SE2 {a} {b} {ms[0][0]:.9f} {ms[0][1]:.9f} {ms[0][2]:.9f} "
+                     f"{info[0]} 0 0 {info[1]} 0 {info[2]}")
+    dataset.write_g2o(None, convert.values_from_arrays({"Pose2": (np.arange(n_c), xdr)},
+                                                       device="cpu"), cpath)
+    with open(cpath, "a") as f:
+        f.write("\n".join(edges) + "\n")
+    sa, sb = os.path.join(work, "cmp_batch.npz"), os.path.join(work, "cmp_pert.npz")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as cmp_out:
+        bres = solver_comparer.main(["--batch", "-d", cpath, "-o", sa, "--device", dev,
+                                     "--iterations", "30"])
+        solver_comparer.main(["--perturb", sa, "-o", sb, "--device", dev])
+        diff = solver_comparer.main(["--compare", sa, sb, "--device", dev])
+    cmp_s = time.perf_counter() - t0
+    pert = np.random.default_rng(42).normal(scale=0.01, size=np.load(sa)["sol"].shape)
+    want = np.linalg.norm(pert[:, -2:], axis=1)
+    out["f"] = dict(sphere_error=e0, read_error=e1, read_rel=abs(e1 - e0) / e0,
+                    write_ms=timing.tictoc_get("write_g2o").wall * 1e3, read_ms=span.wall * 1e3,
+                    comparer_lines=HYB_COMPARER_LINES, comparer_poses=n_c,
+                    batch_error=float(bres.error), batch_iterations=bres.iterations,
+                    comparer_s=cmp_s, compare_mean=float(diff.mean()), compare_max=float(diff.max()))
+    log(f"hybrid f) the phase-4 sphere through write_g2o ({out['f']['write_ms']:.1f} ms) and "
+        f"read_g2o onto the card ({out['f']['read_ms']:.1f} ms, timing.tic spans): its error at "
+        f"the read values {e1:.9e} against {e0:.9e} (rel {out['f']['read_rel']:.3e}; the file "
+        f"keeps 6 decimals); solver_comparer on a {HYB_COMPARER_LINES}-line City file ({n_c} "
+        f"poses): batch LM {bres.error:.6e} in {bres.iterations} iterations, perturb, compare "
+        f"(mean {diff.mean():.6f} max {diff.max():.6f} m), {cmp_s:.1f} s; comparer output "
+        f"{len(cmp_out.getvalue().splitlines())} lines")
+    if not (out["f"]["read_rel"] <= 1e-3 and np.allclose(diff, want, atol=1e-12)
+            and bres.error <= bres.error_history[0] and span.n == 1):
+        raise AssertionError("hybrid f): the utilities failed their gates")
+    for p_ in (path, fpath, gpath, cpath, sa, sb):
+        os.remove(p_)
+    lap("f")
+
+    out["launches"] = launches
+    log(f"hybrid launches (c)'s folded, single, sampled, looped and cut solves, d)'s and e)'s "
+        f"card runs; each counted once): {launches}")
+    # the City plan's fronts all fit shared memory (K1 takes none of them):
+    # every kernel its routing names, and K2, must have run
+    need = {"backsolve_bucket"} | {ROUTE_KERNEL[r[0]] for r in out["c"]["routes"]}
+    if dev == "cuda" and not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"hybrid: a kernel of the hybrid path was never launched: {launches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"hybrid phase: {out['phase_s']:.1f} s (" + ", ".join(
+        f"{k}) {x:.1f} s" for k, x in secs.items()) + f") on {card}")
+    return out
+
+
+
 # --- phase 7: smart-factor bundle adjustment --------------------------------------------
 
 
@@ -4745,6 +5355,7 @@ def main():
     init_only = "--init-only" in sys.argv[1:]
     robust_only = "--robust-only" in sys.argv[1:]
     geometry_only = "--geometry-only" in sys.argv[1:]
+    hybrid_only = "--hybrid-only" in sys.argv[1:]
     t_start = time.perf_counter()
 
     import numpy as np
@@ -4798,6 +5409,12 @@ def main():
             isam2_timed[name].setdefault(ROUTE_KERNEL[b[col]], []).append(b[:3] + (3,))
     log(f"iSAM2 d = 3 buckets ({ISAM2_SHAPES}): {len(isam2_level)} level shapes, "
         f"{len(isam2_wild)} wildfire shapes, {len(isam2_cases)} distinct")
+
+    if hybrid_only:
+        # phase 16 alone; no result line
+        run_hybrid(torch, v1, here)
+        log(f"hybrid-only run passed in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
 
     if geometry_only:
         # phase 15 alone; no result line
@@ -5234,9 +5851,13 @@ def main():
     geometry_res = run_geometry(torch, v1)
     log(f"geometry phase done at {time.perf_counter() - t_start:.1f} s")
 
+    # 16. discrete and hybrid inference, the utilities
+    hybrid_res = run_hybrid(torch, v1, here)
+    log(f"hybrid phase done at {time.perf_counter() - t_start:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 16. result lines
+    # 17. result lines
     out = []
     for kname, (source, replaces, _) in KERNELS.items():
         f64, f32 = kres[kname]["float64"], kres[kname]["float32"]
@@ -5255,7 +5876,8 @@ def main():
             launches=(launches[kname] + isam2["launches"][kname] + mixed_launches[kname]
                       + family["launches"][kname] + part_res["launches"][kname]
                       + nav_res["launches"][kname] + init_res["launches"][kname]
-                      + robust_res["launches"][kname] + geometry_res["launches"][kname]),
+                      + robust_res["launches"][kname] + geometry_res["launches"][kname]
+                      + hybrid_res["launches"][kname]),
             max_abs_err=f64["max_abs_err"], ms=f64["ms"],
             plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"], bound_by=f64["bound_by"],
             library_ms=None, dtype="float64", device_ms=f64["device_ms"], float32=f32,
@@ -5273,6 +5895,8 @@ def main():
             launches_init_path=init_res["launches"][kname],
             launches_robust_path=robust_res["launches"][kname],
             launches_geometry_path=geometry_res["launches"][kname],
+            launches_hybrid_path=hybrid_res["launches"][kname],
+            hybrid_folded_launches_per_solve=hybrid_res["c"]["launches_folded"][kname],
             cuda_launches=cuda_launches[kname] + isam2["cuda_launches"][kname]
             + opt_res["mixed"]["cuda_launches"][kname],
             cuda_launches_per_bucket=(cuda_launches[kname] + isam2["cuda_launches"][kname]
@@ -5290,7 +5914,8 @@ def main():
                                   "optimizers": opt_res, "plans": plans,
                                   "host_engine": host_res, "partitioned": part_res,
                                   "navigation": nav_res, "init": init_res,
-                                  "robust": robust_res, "geometry": geometry_res}),
+                                  "robust": robust_res, "geometry": geometry_res,
+                                  "hybrid": hybrid_res}),
                      allow_nan=False), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,17 @@ Ported so far (the batch Pose3 solve, bundle adjustment, iSAM2):
               and shared-memory working copy, dense and block-pool input)
               and the fused backsolve
   utils/      numpy -> port conversion, synthetic Pose3 ring graphs and a
-              City10000-like Pose2 stream
+              City10000-like Pose2 stream (and its Hybrid City variant),
+              g2o / TORO I/O, the solver comparer, timers, debug flags,
+              DOT export
+  discrete/   dense-table discrete factor graphs, exact k-best search
+  hybrid/     hybrid Gaussian factor graphs (dense, and every hypothesis
+              folded into the multifrontal kernels' buckets), the
+              HybridSmoother; models/hybrid_city.py the Hybrid_City10000
+              harness
+
+Every module of the JAX package has its counterpart here but its native/
+loader: the port loads no shared library of the JAX package.
 """
 
 __version__ = "0.1.0"

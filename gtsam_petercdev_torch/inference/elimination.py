@@ -37,6 +37,7 @@ back-substitution.
 
 from __future__ import annotations
 
+import math
 import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -138,15 +139,16 @@ class DeviceGatherSum:
 
 
 def apply_gather_sum(plan: DeviceGatherSum, src: torch.Tensor) -> torch.Tensor:
-    """Execute a gather-sum plan. src [n_src, w] -> [n_dest, w]."""
-    z = src.new_zeros((1, src.shape[1]))
+    """Execute a gather-sum plan. src [..., n_src, w] -> [..., n_dest, w]:
+    leading axes (the hypotheses of `multifrontal_solve`) share the plan."""
+    z = src.new_zeros(src.shape[:-2] + (1, src.shape[-1]))
     for ia, ib in plan.rounds:
-        s = torch.cat([src, z], dim=0)
-        src = s[ia] + s[ib]
-    s = torch.cat([src, z], dim=0)
-    out = s[plan.direct[0]]
+        s = torch.cat([src, z], dim=-2)
+        src = s[..., ia, :] + s[..., ib, :]
+    s = torch.cat([src, z], dim=-2)
+    out = s[..., plan.direct[0], :]
     for col in plan.direct[1:]:
-        out = out + s[col]
+        out = out + s[..., col, :]
     return out
 
 
@@ -548,48 +550,57 @@ def _pad_last(x, target):
     return x if pad <= 0 else tnf.pad(x, (0, pad))
 
 
-def assemble(maps: NumericMaps, dm: DeviceMaps, Ab, lam, diagonal_damping: bool):
-    """Gather factor Hessian blocks + identity padding + damping into the
-    block pool, scatter-free (see GatherSumPlan).
+def _lead(t: torch.Tensor, M: int, rank: int) -> torch.Tensor:
+    """t with the hypothesis axis: as it is when it has one (rank + 1 dims),
+    else the same rows for every hypothesis (an expanded view)."""
+    return t if t.dim() == rank + 1 else t.expand(M, *t.shape)
 
-    Returns (pool [n_blocks+1, d*d], gp [n_grows+1, d])."""
+
+def assemble(maps: NumericMaps, dm: DeviceMaps, Ab, lam, diagonal_damping: bool,
+             hypotheses: Optional[int] = None):
+    """Gather factor Hessian blocks + identity padding + damping into the
+    block pool, scatter-free (see GatherSumPlan). With `hypotheses` = M, an
+    A block or b may carry a leading hypothesis axis ([M, N, r, dim],
+    [M, N, r]); one without it is shared, and every row takes the axis.
+
+    Returns (pool [.., n_blocks+1, d*d], gp [.., n_grows+1, d])."""
     d = maps.plan.d
     dd = d * d
     b0 = Ab[0][1]
     dtype, dev = b0.dtype, b0.device
     n = maps.plan.n
     eye = torch.eye(d, dtype=dtype, device=dev)
+    rows = (lambda t: t) if hypotheses is None else (lambda t: _lead(t, hypotheses, 2))
 
     # contribution rows in the exact order the host plans enumerate
     blk_rows, g_rows, hdiag_rows = [], [], []
     for bi, (A, b) in enumerate(Ab):
         sign = maps.batch_signs[bi]
-        N = b.shape[0]
         for k in range(len(A)):
-            gk = torch.einsum("nri,nr->ni", A[k], b)
-            hk = torch.einsum("nri,nri->ni", A[k], A[k])
+            gk = torch.einsum("...nri,...nr->...ni", A[k], b)
+            hk = torch.einsum("...nri,...nri->...ni", A[k], A[k])
             if sign != 1.0:
                 gk = gk * sign
                 hk = hk * sign
-            g_rows.append(_pad_last(gk, d))
-            hdiag_rows.append(_pad_last(hk, d))
+            g_rows.append(rows(_pad_last(gk, d)))
+            hdiag_rows.append(rows(_pad_last(hk, d)))
             for l in range(len(A)):
-                blk = A[k].transpose(1, 2) @ A[l]
+                blk = A[k].transpose(-1, -2) @ A[l]
                 if sign != 1.0:
                     blk = blk * sign
-                blk = tnf.pad(blk, (0, d - blk.shape[2], 0, d - blk.shape[1]))
-                blk_rows.append(blk.reshape(N, dd))
+                blk = tnf.pad(blk, (0, d - blk.shape[-1], 0, d - blk.shape[-2]))
+                blk_rows.append(rows(blk.reshape(*blk.shape[:-2], dd)))
 
     # damping contribution per variable (targets its diag slot)
     if diagonal_damping:
-        hdiag = apply_gather_sum(dm.hdiag_plan, torch.cat(hdiag_rows, dim=0))
-        damp = (lam * hdiag[:, :, None] * eye[None]).reshape(n, dd)
+        hdiag = apply_gather_sum(dm.hdiag_plan, torch.cat(hdiag_rows, dim=-2))
+        damp = (lam * hdiag[..., None] * eye).reshape(*hdiag.shape[:-1], dd)
     else:
         damp = (lam * eye).reshape(1, dd).expand(n, dd)
 
-    contrib = torch.cat(blk_rows + [dm.eye_vals.to(dtype), damp], dim=0)
+    contrib = torch.cat(blk_rows + [rows(dm.eye_vals.to(dtype)), rows(damp)], dim=-2)
     pool = apply_gather_sum(dm.asm_plan, contrib)
-    gp = apply_gather_sum(dm.asm_g_plan, torch.cat(g_rows, dim=0))
+    gp = apply_gather_sum(dm.asm_g_plan, torch.cat(g_rows, dim=-2))
     return pool, gp
 
 
@@ -603,68 +614,75 @@ def bucket_route(bm: BucketMaps, d: int, itemsize: int) -> str:
     return "smem" if bm.ext_mm else "blocks"
 
 
-def _extend_add(db: DeviceBucket, outs, m: int, d: int):
-    """Children's Schur complements U in the parent's frame: dF [B, m*m]. A
-    child's dense U is gathered by the scalar row map; block-layout U (from
-    K4) by its block and in-block indices, without ever becoming
-    [B, sd, sd]."""
+def _extend_add(db: DeviceBucket, outs, m: int, d: int, lead: tuple):
+    """Children's Schur complements U in the parent's frame: dF [.., B, m*m]
+    (`lead` the hypothesis axis, or ()). A child's dense U is gathered by the
+    scalar row map; block-layout U (from K4) by its block and in-block
+    indices, without ever becoming [B, sd, sd]."""
     incs = []
     for ch_bf, sel, rowmap, c, blocked in db.ext:
         out = outs[ch_bf]
         if "U_blocks" in out:
             bi, ii = blocked
             ns_c = out["ug_blocks"].shape[1]
-            Ub = out["U_blocks"][sel].reshape(-1, ns_c, ns_c, d, d)
+            Ub = out["U_blocks"].reshape(*lead, -1, ns_c, ns_c, d, d)[..., sel, :, :, :, :]
             Ub = tnf.pad(Ub, (0, 0, 0, 0, 0, 1, 0, 1))  # one zero block per block axis
-            inc = Ub[c, bi[:, :, None], bi[:, None, :], ii[:, :, None], ii[:, None, :]]
+            inc = Ub[..., c, bi[:, :, None], bi[:, None, :], ii[:, :, None], ii[:, None, :]]
         else:
-            Us = tnf.pad(out["U"][sel], (0, 1, 0, 1))
-            inc = Us[c, rowmap[:, :, None], rowmap[:, None, :]]
-        incs.append(inc.reshape(-1, m * m))
-    return apply_gather_sum(db.ext_seg, torch.cat(incs, dim=0))
+            sd_c = out["U"].shape[-1]
+            Us = tnf.pad(out["U"].reshape(*lead, -1, sd_c, sd_c)[..., sel, :, :], (0, 1, 0, 1))
+            inc = Us[..., c, rowmap[:, :, None], rowmap[:, None, :]]
+        incs.append(inc.reshape(*lead, -1, m * m))
+    return apply_gather_sum(db.ext_seg, torch.cat(incs, dim=-2))
 
 
-def _new_ug_pool(dm: DeviceMaps, like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(dm.ug_size + 1, dtype=like.dtype, device=like.device)
+def _new_ug_pool(dm: DeviceMaps, like: torch.Tensor, lead: tuple = ()) -> torch.Tensor:
+    return torch.zeros(lead + (dm.ug_size + 1,), dtype=like.dtype, device=like.device)
 
 
 def _push_ug(dm: DeviceMaps, ug_pool, bf: int, ug: torch.Tensor) -> None:
-    """Store bucket bf's ug ([B, sd] or K4's [B, ns, d]) in the flat pool."""
-    ug_pool[dm.ug_offs[bf] : dm.ug_offs[bf] + ug.numel()] = ug.reshape(-1)
+    """Store bucket bf's ug ([.. * B, sd] or K4's [.. * B, ns, d]) in the flat
+    pool [.., ug_size + 1]."""
+    ug = ug.reshape(ug_pool.shape[:-1] + (-1,))
+    ug_pool[..., dm.ug_offs[bf] : dm.ug_offs[bf] + ug.shape[-1]] = ug
 
 
 def _extend_add_g(db: DeviceBucket, ug_pool) -> torch.Tensor:
-    """Children's ug in the parent's frame, summed per parent: [B, m], by one
-    gather from the flat pool."""
-    return apply_gather_sum(db.ext_seg, ug_pool[db.ug_idx])
+    """Children's ug in the parent's frame, summed per parent: [.., B, m], by
+    one gather from the flat pool."""
+    return apply_gather_sum(db.ext_seg, ug_pool[..., db.ug_idx])
 
 
 def _eliminate(maps: NumericMaps, dm: DeviceMaps, pool, gp):
     """Bottom-up: per bucket one batched partial Cholesky on the kernel
     `bucket_route` picks; each bucket pulls its children's Schur
     contributions (U, ug) into its frame by index and segment-sums them per
-    parent (the extend-add). Returns (the per-bucket outputs, the bad-pivot
-    count as an int32 device scalar)."""
+    parent (the extend-add). A leading hypothesis axis of the pools (M)
+    folds into the batch: a bucket of B cliques is one launch of M * B.
+    Returns (the per-bucket outputs, the bad-pivot count as an int32 device
+    scalar)."""
     d = maps.plan.d
+    lead = tuple(pool.shape[:-2])
     outs = []
     bad_total = torch.zeros((), dtype=torch.int32, device=pool.device)
     itemsize = pool.element_size()
-    ug_pool = _new_ug_pool(dm, pool)
+    ug_pool = _new_ug_pool(dm, pool, lead)
     for bf, (bm, db) in enumerate(zip(maps.buckets, dm.buckets)):
         B, nf, mb = bm.B, bm.nf, bm.mb
         m = mb * d
-        blocks = pool[bm.blk_start : bm.blk_start + B * mb * mb]
-        gblocks = gp[bm.g_start : bm.g_start + B * mb]
+        MB = B * math.prod(lead)
+        blocks = pool[..., bm.blk_start : bm.blk_start + B * mb * mb, :]
+        gblocks = gp[..., bm.g_start : bm.g_start + B * mb, :]
         route = bucket_route(bm, d, itemsize)
         if route == "blocks":
             out = cholesky.partial_cholesky_blocks(
-                blocks.view(-1, d, d), gblocks.view(B, mb, d), nf, bm.ns, d)
+                blocks.reshape(-1, d, d), gblocks.reshape(MB, mb, d), nf, bm.ns, d)
         else:
-            Fm = cholesky.dense_from_blocks(blocks, B, mb, d)
-            gm = gblocks.reshape(B, m)
+            Fm = cholesky.dense_from_blocks(blocks, MB, mb, d)
+            gm = gblocks.reshape(MB, m)
             if db.ext:
-                Fm = Fm + _extend_add(db, outs, m, d).reshape(B, m, m)
-                gm = gm + _extend_add_g(db, ug_pool)
+                Fm = Fm + _extend_add(db, outs, m, d, lead).reshape(MB, m, m)
+                gm = gm + _extend_add_g(db, ug_pool).reshape(MB, m)
             chol = cholesky.partial_cholesky if route == "smem" else cholesky_v2.partial_cholesky
             out = chol(Fm, gm, nf, d)
         if bm.ns > 0:
@@ -674,23 +692,24 @@ def _eliminate(maps: NumericMaps, dm: DeviceMaps, pool, gp):
     return outs, bad_total
 
 
-def _back_substitute(maps: NumericMaps, dm: DeviceMaps, factors, ys) -> torch.Tensor:
+def _back_substitute(maps: NumericMaps, dm: DeviceMaps, factors, ys, lead: tuple = ()):
     """Top-down: K2 solves L^T x_f = y - W x_s per bucket; factors is
-    (L, Linv, W) per bucket. Returns x [n, d] in global variable-id order."""
+    (L, Linv, W) per bucket, hypothesis-major over `lead`. Returns x
+    [.., n, d] in global variable-id order."""
     d = maps.plan.d
     y0 = ys[0]
-    x = torch.zeros((maps.plan.n + 1, d), dtype=y0.dtype, device=y0.device)
+    x = torch.zeros(lead + (maps.plan.n + 1, d), dtype=y0.dtype, device=y0.device)
     for bm, db, (L, Linv, W), y in zip(reversed(maps.buckets), reversed(dm.buckets),
                                        reversed(factors), reversed(ys)):
         B, nf, ns = bm.B, bm.nf, bm.ns
         if ns > 0:
-            xs = x[db.sep_idx].reshape(B, ns * d)
+            xs = x[..., db.sep_idx, :].reshape(y.shape[0], ns * d)
         else:
-            xs = torch.zeros((B, 0), dtype=y.dtype, device=y.device)
+            xs = torch.zeros((y.shape[0], 0), dtype=y.dtype, device=y.device)
         xf = cholesky_v2.backsolve_bucket(L, Linv, W, y, xs, nf, d)
-        x[db.fro_idx] = xf.reshape(B * nf, d)
+        x[..., db.fro_idx, :] = xf.reshape(*lead, B * nf, d)
     # permuted rows -> global variable id order
-    return x[:-1][dm.iperm]
+    return x[..., :-1, :][..., dm.iperm, :]
 
 
 def multifrontal_solve(
@@ -700,6 +719,7 @@ def multifrontal_solve(
     diagonal_damping: bool = False,
     return_stats: bool = False,
     return_logdet: bool = False,
+    hypotheses: Optional[int] = None,
 ):
     """Solve (J^T J + lam D) x = J^T b via the planned supernodal Cholesky.
 
@@ -708,18 +728,28 @@ def multifrontal_solve(
     return_stats=True returns (x, stats) where stats['bad_pivots'] (an int32
     device scalar) counts clamped pivots. return_logdet=True returns the
     stats too, with stats['logdet'] = log det(J^T J + lam D) (padded slots
-    carry identity pivots and add log 1 = 0)."""
+    carry identity pivots and add log 1 = 0).
+
+    hypotheses=M solves M systems of `maps`' structure at once (the JAX
+    package vmaps its solve over them, hybrid/hybrid.py:367): an A block or
+    b with a leading hypothesis axis differs per hypothesis, one without it
+    is shared (see `assemble`). Every pool takes the axis in front, so a
+    bucket of B cliques is one launch of M * B on the kernel `bucket_route`
+    picks, and one of K2; no index map grows with M and nothing loops over
+    the hypotheses. x is then [M, n, d], stats['logdet'] [M] and
+    stats['bad_pivots'] the count over all of them."""
     dm = maps.on_device(Ab[0][1].device)
-    pool, gp = assemble(maps, dm, Ab, lam, diagonal_damping)
+    lead = () if hypotheses is None else (hypotheses,)
+    pool, gp = assemble(maps, dm, Ab, lam, diagonal_damping, hypotheses)
     outs, bad_total = _eliminate(maps, dm, pool, gp)
     xg = _back_substitute(maps, dm, [(o["L"], o["Linv"], o["W"]) for o in outs],
-                          [o["y"] for o in outs])
+                          [o["y"] for o in outs], lead)
     if return_stats or return_logdet:
         stats = {"bad_pivots": bad_total}
         if return_logdet:
             stats["logdet"] = sum(
-                2.0 * torch.sum(torch.log(torch.clamp(
-                    torch.diagonal(o["L"], dim1=1, dim2=2), min=1e-300))) for o in outs)
+                2.0 * torch.log(torch.clamp(torch.diagonal(o["L"], dim1=1, dim2=2), min=1e-300))
+                .reshape(*lead, -1).sum(-1) for o in outs)
         return xg, stats
     return xg
 

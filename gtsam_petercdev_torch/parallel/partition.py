@@ -42,6 +42,7 @@ separator system (by the rank that holds part 0).
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -917,13 +918,26 @@ def linearized_structure(lg):
     return structure, var_dims
 
 
+_SOLVED = weakref.WeakSet()  # graphs holding cached partitioned solvers
+
+
+def clear_solver_cache() -> None:
+    """Drop every cached partitioned solver (plan, folded maps, device
+    indices), so each graph plans anew on its next solve (the JAX package's
+    clears its module-level cache)."""
+    for graph in list(_SOLVED):
+        graph.__dict__.pop("_partitioned_solvers", None)
+    _SOLVED.clear()
+
+
 def _graph_solver(graph, lg, n_parts, group) -> PartitionedSolver:
     """The partitioned solver of this graph's structure, cached ON the graph
     object as the multifrontal and Schur plans are (the JAX package keys a
-    module-level cache by id(graph))."""
+    module-level cache by id(graph)); `clear_solver_cache` drops them."""
     from gtsam_petercdev_torch.inference.elimination import _plan_key
 
     key = (_plan_key(lg), n_parts)
+    _SOLVED.add(graph)
     cache = graph.__dict__.setdefault("_partitioned_solvers", {})
     ent = cache.get(key)
     if ent is None or ent.group is not group:

@@ -48,6 +48,10 @@ package and the port (the JAX side keeps its factor data as numpy already):
            them), "Anti<name>" (the params of <name>), and
            "BasisEval<N>_<weight function>" ({"x": [N], "y": [N]})
 
+Discrete and hybrid graphs have converters of their own
+(`discrete_graph_from_arrays`, `hybrid_graph_from_arrays`): their tables,
+cards, terms and noise normalizers as numpy arrays.
+
 This is the one place that carries state across: a JAX `Values` / graph,
 or a smart-factor batch, read out as numpy, becomes the port's here.
 """
@@ -304,3 +308,38 @@ def gnc_weights(weights, *, device: DeviceLike = "cuda", dtype=None):
     (default float64)."""
     dev, dt = resolve_device(device), resolve_dtype(dtype)
     return [torch.as_tensor(np.asarray(w, dtype=np.float64)).to(dev, dt) for w in weights]
+
+
+def discrete_graph_from_arrays(factors, *, device: DeviceLike = "cuda", dtype=None):
+    """The port's DiscreteFactorGraph on `device` in `dtype` (default
+    float64) from numpy factors [(keys_cards [(key, card), ...], table
+    [*cards])]: a JAX DiscreteFactorGraph's factors read out as
+    ([(k, graph.cards[k]) for k in f.keys], np.asarray(f.table))."""
+    from gtsam_petercdev_torch.discrete.discrete import DiscreteFactorGraph
+
+    g = DiscreteFactorGraph(device=device, dtype=dtype)
+    for keys_cards, table in factors:
+        g.add(keys_cards, np.asarray(table, dtype=np.float64))
+    return g
+
+
+def hybrid_graph_from_arrays(cont_dims, disc_cards, terms, discrete, *,
+                             device: DeviceLike = "cuda", dtype=None):
+    """The port's HybridGaussianFactorGraph on `device` in `dtype` (default
+    float64) from numpy arrays: cont_dims {key: dim}, disc_cards {key:
+    card}, terms [(cont_keys, A blocks (numpy, [*cards, r, dim_k] for a
+    hybrid term), b, disc_keys, log_norm)] and discrete [(keys, table)] — a
+    JAX HybridGaussianFactorGraph's fields (`gaussians` term by term,
+    `discrete`) read out with np.asarray, in their order."""
+    from gtsam_petercdev_torch.hybrid.hybrid import HybridGaussianFactorGraph
+
+    g = HybridGaussianFactorGraph(device=device, dtype=dtype)
+    for ck, A, b, dk, ln in terms:
+        ckd = [(k, cont_dims[k]) for k in ck]
+        if dk:
+            g.add_hybrid(ckd, [(k, disc_cards[k]) for k in dk], A, b, log_norm=ln)
+        else:
+            g.add_continuous(ckd, A, b, log_norm=ln)
+    for keys, table in discrete:
+        g.add_discrete([(k, disc_cards[k]) for k in keys], table)
+    return g

@@ -1,5 +1,6 @@
 """Synthetic graphs: Pose3 rings with the topology of the sphere benchmark,
-a City10000-like Pose2 stream (`city_stream`), an IMU + GPS drive
+a City10000-like Pose2 stream (`city_stream`) and its Hybrid City variant
+with ambiguous measurements (`hybrid_city_stream`), an IMU + GPS drive
 (`imu_gps_drive`), the scenes of the unstable factors and the camera
 factors, those of the robust and global front end (`ring_rotations`,
 `sphere_directions`) and those of the extended geometry (`planar_slam`,
@@ -171,6 +172,62 @@ def city_stream(n_poses: int, seed: int = 0, side: int = 48, p_turn: float = 0.3
     gt = np.stack(gt)
     gt[:, :2] -= gt[0, :2]  # the harness starts at the origin
     return lines, gt
+
+
+# the three moves of city_stream's walker as relative poses (x, y, theta):
+# one cell straight on, after a left turn, after a right turn
+CITY_MOVES = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, np.pi / 2], [0.0, -1.0, -np.pi / 2]])
+
+
+def hybrid_city_stream(n_poses: int, seed: int = 0, p_ambiguous: float = 0.1,
+                       p_false_loop: float = 0.1):
+    """A synthetic Hybrid_City10000-like stream: `city_stream(n_poses,
+    seed)` with ambiguity added, in the same EDGE2 format (`EDGE2 keyS 1 keyT
+    1 numMeas x y theta [x y theta ...]`) that models/hybrid_city reads. The
+    reference's T1_city10000_04.txt is not in the repository; until it is,
+    this stream has the shape of what Hybrid_City10000's users run.
+
+    With probability `p_ambiguous` an odometry line carries a second
+    candidate measurement: a wrong turn (another of CITY_MOVES than the one
+    taken, under the same odometry noise), placed at a random position among
+    the two candidates. A `p_false_loop` share of the loop closures points
+    at a wrong earlier pose (drawn uniformly among those at least two poses
+    back, not the true one), keeping its measurement. The decisions draw
+    from their own numpy seed stream, so the walk and its measurements are
+    city_stream's.
+
+    Returns (lines, gt, truth): gt as city_stream's; truth a dict of
+    `candidate` [n_lines] (the index of the true measurement among a line's
+    candidates; 0 on single-candidate lines) and `loop_true` [n_lines]
+    (False on a false loop closure; True on every other line)."""
+    base, gt = city_stream(n_poses, seed)
+    rng = np.random.default_rng([seed, 1])
+    lines, candidate, loop_true = [], [], []
+    for ln in base:
+        parts = ln.split()
+        a, b = int(parts[1]), int(parts[3])
+        meas = np.array([float(p) for p in parts[6:9]])
+        cand, true_loop = 0, True
+        if b == a + 1:
+            ms = [meas]
+            if rng.random() < p_ambiguous:
+                rel = pose2_between_np(gt[a], gt[b])
+                taken = int(np.argmin(np.abs(CITY_MOVES - rel).sum(1)))
+                wrong = CITY_MOVES[rng.choice([k for k in range(3) if k != taken])]
+                alt = wrong + rng.normal(size=3) * CITY_SIGMAS
+                alt[2] = np.arctan2(np.sin(alt[2]), np.cos(alt[2]))
+                cand = int(rng.integers(2))
+                ms = [alt, meas] if cand else [meas, alt]
+        else:
+            ms = [meas]
+            if rng.random() < p_false_loop and b >= 3:
+                a = int(rng.choice([j for j in range(b - 1) if j != a]))
+                true_loop = False
+        lines.append(f"EDGE2 {a} 1 {b} 1 {len(ms)} "
+                     + " ".join(f"{m[0]:.9f} {m[1]:.9f} {m[2]:.9f}" for m in ms))
+        candidate.append(cand)
+        loop_true.append(true_loop)
+    return lines, gt, {"candidate": np.asarray(candidate), "loop_true": np.asarray(loop_true)}
 
 
 # the drive's car: body yaw rate and forward speed (a circle of radius
