@@ -10,7 +10,10 @@ Device rule: every public entry point takes `device=` and defaults to
 "cuda"; without a CUDA device it raises unless the caller passes
 `device="cpu"` (see `device.py`).
 
-Ported so far (the batch Pose3 solve, bundle adjustment, iSAM2):
+The port mirrors every module of the JAX package but its native/ loader
+(the port loads no shared library of the JAX package); the root re-exports
+Symbol, symbol, symbol_chr and symbol_index from core/keys.py, as the JAX
+package's root does:
   core/       manifold registry, keys / symbols
   geometry/   so3, rot2, pose2, pose3, calibrations, cameras
   linear/     noise models, dense solve and matrix-free products
@@ -34,9 +37,8 @@ Ported so far (the batch Pose3 solve, bundle adjustment, iSAM2):
               folded into the multifrontal kernels' buckets), the
               HybridSmoother; models/hybrid_city.py the Hybrid_City10000
               harness
-
-Every module of the JAX package has its counterpart here but its native/
-loader: the port loads no shared library of the JAX package.
 """
 
 __version__ = "0.1.0"
+
+from gtsam_petercdev_torch.core.keys import Symbol, symbol, symbol_chr, symbol_index

@@ -41,6 +41,21 @@ def resolve_dtype(dtype=None) -> torch.dtype:
     return table[name]
 
 
+def as_float(x, like=None) -> torch.Tensor:
+    """x (a Python number or list, a numpy array, a tensor) as a float tensor.
+
+    A tensor passes through; anything else goes through numpy first, so a
+    Python number or list is float64 there, as `jnp.asarray` takes it under
+    x64 (`torch.as_tensor` would round it to torch's default float32 before
+    any later cast), and an integer array becomes float64. A float numpy
+    array keeps its dtype. With `like` (a tensor) the result takes its dtype
+    and device."""
+    if not torch.is_tensor(x):
+        a = np.asarray(x)
+        x = torch.as_tensor(a if a.dtype.kind == "f" else a.astype(np.float64))
+    return x if like is None else x.to(like)
+
+
 def check_graph_values(graph, values, device: DeviceLike) -> torch.device:
     """Resolve `device` and raise unless a graph and its Values (anything
     with a `.device`) live on its type: an entry point moves nothing."""

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from gtsam_petercdev_torch.device import as_float
+
 
 class GaussianState(NamedTuple):
     mean: torch.Tensor  # [..., n]
@@ -34,18 +36,19 @@ def _sandwich(A, P):
 
 
 def init(x0, P0) -> GaussianState:
-    return GaussianState(torch.as_tensor(x0), torch.as_tensor(P0))
+    x0 = as_float(x0)
+    return GaussianState(x0, as_float(P0, x0))
 
 
 def predict(state: GaussianState, F, B=None, u=None, Q=None) -> GaussianState:
     """x' = F x + B u + w, w ~ N(0, Q) (KalmanFilter::predict)."""
-    F = torch.as_tensor(F)
+    F = as_float(F, state.mean)
     x = _mv(F, state.mean)
     if B is not None and u is not None:
-        x = x + _mv(torch.as_tensor(B), torch.as_tensor(u))
+        x = x + _mv(as_float(B, x), as_float(u, x))
     P = _sandwich(F, state.cov)
     if Q is not None:
-        P = P + torch.as_tensor(Q)
+        P = P + as_float(Q, P)
     return GaussianState(x, P)
 
 
@@ -53,7 +56,7 @@ def update(state: GaussianState, H, z, R) -> GaussianState:
     """Measurement z = H x + v, v ~ N(0, R) (KalmanFilter::update).
 
     Joseph-form covariance update for numerical symmetry."""
-    H, z, R = torch.as_tensor(H), torch.as_tensor(z), torch.as_tensor(R)
+    H, z, R = (as_float(a, state.mean) for a in (H, z, R))
     y = z - _mv(H, state.mean)
     S = _sandwich(H, state.cov) + R
     PHt = state.cov @ _t(H)
@@ -76,7 +79,7 @@ def smooth_rts(states_filt: GaussianState, states_pred: GaussianState, F) -> Gau
 
     Recursion (t = T-2..0): C_t = P_t|t F_{t+1}^T P_{t+1|t}^{-1};
     x_t|T = x_t|t + C_t (x_{t+1|T} - x_{t+1|t})."""
-    F = torch.as_tensor(F)
+    F = as_float(F, states_filt.mean)
     T = states_filt.mean.shape[0]
     xs, Ps = states_filt.mean[-1], states_filt.cov[-1]
     means, covs = [xs], [Ps]

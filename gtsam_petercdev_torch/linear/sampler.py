@@ -12,11 +12,13 @@ from __future__ import annotations
 
 import torch
 
+from gtsam_petercdev_torch.device import as_float
+
 
 def sample_diagonal(generator: torch.Generator, sigmas, shape=()):
     """eps ~ N(0, diag(sigmas^2)); shape prepends batch dims
     (Sampler::sampleDiagonal)."""
-    sigmas = torch.as_tensor(sigmas)
+    sigmas = as_float(sigmas)
     z = torch.randn(tuple(shape) + tuple(sigmas.shape), generator=generator,
                     dtype=sigmas.dtype, device=sigmas.device)
     return z * sigmas
@@ -25,7 +27,7 @@ def sample_diagonal(generator: torch.Generator, sigmas, shape=()):
 def sqrt_info_transform(sqrt_info, z):
     """eps with sqrt_info @ eps = z, for standard normal draws z [..., d]: one
     solve with every draw as a right-hand side."""
-    R = torch.as_tensor(sqrt_info)
+    R = as_float(sqrt_info, z)
     d = R.shape[-1]
     if R.ndim == 2:
         return torch.linalg.solve(R, z.reshape(-1, d).T).T.reshape(z.shape)
@@ -35,7 +37,7 @@ def sqrt_info_transform(sqrt_info, z):
 def sample_sqrt_info(generator: torch.Generator, sqrt_info, shape=()):
     """eps with sqrt_info @ eps ~ N(0, I): solve R eps = z (general Gaussian
     noise model; Sampler::sample on a non-diagonal model)."""
-    R = torch.as_tensor(sqrt_info)
+    R = as_float(sqrt_info)
     z = torch.randn(tuple(shape) + (R.shape[-1],), generator=generator, dtype=R.dtype,
                     device=R.device)
     return sqrt_info_transform(R, z)

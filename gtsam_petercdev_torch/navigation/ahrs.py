@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from gtsam_petercdev_torch.device import resolve_device
+from gtsam_petercdev_torch.device import as_float, resolve_device
 from gtsam_petercdev_torch.geometry import so3
 from gtsam_petercdev_torch.nonlinear.factor_graph import FactorType
 
@@ -33,7 +33,7 @@ def rotation_init(bias_hat=None, dtype=torch.float64, device="cuda",
     leading dims)."""
     dev = resolve_device(device)
     if bias_hat is not None:
-        bias_hat = torch.as_tensor(bias_hat).to(device=dev, dtype=dtype)
+        bias_hat = as_float(bias_hat).to(device=dev, dtype=dtype)
         batch_shape = tuple(bias_hat.shape[:-1])
     batch_shape = tuple(batch_shape)
     z = lambda *s: torch.zeros(batch_shape + s, dtype=dtype, device=dev)
@@ -72,15 +72,15 @@ def preintegrate_rotation(gyro_cov, omegas, dts, bias_hat=None) -> Preintegrated
     """One stream (omegas [S, 3], dts [S]: the JAX signature) or K intervals
     at once (omegas [K, S, 3], dts [K, S]): a loop of S steps, each batched
     over the intervals. Every interval has S samples, each dt > 0."""
-    omegas = torch.as_tensor(omegas)
-    dts = torch.as_tensor(dts).to(omegas)
+    omegas = as_float(omegas)
+    dts = as_float(dts, omegas)
     single = omegas.ndim == 2
     if single:
         omegas, dts = omegas[None], dts[None]
     K = omegas.shape[0]
     if bias_hat is not None:
-        bias_hat = torch.as_tensor(bias_hat).to(omegas).expand(K, 3)
-    gyro_cov = torch.as_tensor(gyro_cov).to(omegas)
+        bias_hat = as_float(bias_hat, omegas).expand(K, 3)
+    gyro_cov = as_float(gyro_cov, omegas)
     pre = rotation_init(bias_hat, dtype=omegas.dtype, device=omegas.device, batch_shape=(K,))
     for s in range(omegas.shape[1]):
         pre = integrate_rotation(pre, gyro_cov, omegas[:, s], dts[:, s])

@@ -20,6 +20,7 @@ from functools import lru_cache
 
 import torch
 
+from gtsam_petercdev_torch.device import as_float
 from gtsam_petercdev_torch.geometry import so3, unit3
 from gtsam_petercdev_torch.navigation.navstate import NavState, local as nav_local
 from gtsam_petercdev_torch.nonlinear.factor_graph import FactorType
@@ -55,7 +56,7 @@ def pose3_attitude_factor() -> FactorType:
 
 
 def _mag_prediction(R, params):
-    scale = torch.as_tensor(params["scale"]).to(R)[..., None]
+    scale = as_float(params["scale"], R)[..., None]
     return scale * so3.unrotate(R, unit3.normalize(params["direction"])) + params["bias"]
 
 
@@ -129,7 +130,7 @@ def constant_velocity_factor() -> FactorType:
 
     def residual(xs, params):
         x1, x2 = xs
-        dt = torch.as_tensor(params["dt"]).to(x1.t)[..., None]
+        dt = as_float(params["dt"], x1.t)[..., None]
         pred = NavState(x1.R, x1.t + x1.v * dt, x1.v)
         return nav_local(pred, x2)
 

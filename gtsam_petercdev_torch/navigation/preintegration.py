@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gtsam_petercdev_torch.device import resolve_device
+from gtsam_petercdev_torch.device import as_float, resolve_device
 from gtsam_petercdev_torch.geometry import so3
 from gtsam_petercdev_torch.navigation.navstate import NavState, local as ns_local, retract as ns_retract
 
@@ -76,7 +76,7 @@ def pim_init(bias_hat=None, dtype=torch.float64, device="cuda", batch_shape=()) 
     """Empty PIM of `batch_shape` intervals (or bias_hat's leading dims)."""
     dev = resolve_device(device)
     if bias_hat is not None:
-        bias_hat = torch.as_tensor(bias_hat).to(device=dev, dtype=dtype)
+        bias_hat = as_float(bias_hat).to(device=dev, dtype=dtype)
         batch_shape = tuple(bias_hat.shape[:-1])
     batch_shape = tuple(batch_shape)
 
@@ -175,15 +175,15 @@ def preintegrate(params: PreintegrationParams, acc, omega, dts, bias_hat=None) -
     interval of a batch has the same number S of samples, and each dt > 0:
     the noise terms divide by it (`accel_cov / dt`). Ragged streams are out
     of scope. The tensors stay on their device; nothing is copied."""
-    acc = torch.as_tensor(acc)
-    omega = torch.as_tensor(omega).to(acc)
-    dts = torch.as_tensor(dts).to(acc)
+    acc = as_float(acc)
+    omega = as_float(omega, acc)
+    dts = as_float(dts, acc)
     single = acc.ndim == 2
     if single:
         acc, omega, dts = acc[None], omega[None], dts[None]
     K = acc.shape[0]
     if bias_hat is not None:
-        bias_hat = torch.as_tensor(bias_hat).to(acc).expand(K, 6)
+        bias_hat = as_float(bias_hat, acc).expand(K, 6)
     pim = pim_init(bias_hat, dtype=acc.dtype, device=acc.device, batch_shape=(K,))
     for s in range(acc.shape[1]):
         pim = integrate_measurement(pim, params, acc[:, s], omega[:, s], dts[:, s])
@@ -213,7 +213,7 @@ def bias_corrected_delta(pim: PIM, bias):
 def correct_pim(state: NavState, xi, dt, n_gravity):
     """NavState::correctPIM (NavState.cpp:439): add gravity + initial velocity.
     dt [...] (the intervals' deltaT)."""
-    dtv = torch.as_tensor(dt).to(xi)[..., None]
+    dtv = as_float(dt, xi)[..., None]
     dt22 = 0.5 * dtv * dtv
     dP = xi[..., 3:6] + dtv * so3.unrotate(state.R, state.v) + dt22 * so3.unrotate(state.R, n_gravity)
     dV = xi[..., 6:9] + dtv * so3.unrotate(state.R, n_gravity)

@@ -16,19 +16,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gtsam_petercdev_torch.device import resolve_device
+from gtsam_petercdev_torch.device import as_float, resolve_device
 from gtsam_petercdev_torch.geometry import pose3, so3
 from gtsam_petercdev_torch.navigation import preintegration as pre
 from gtsam_petercdev_torch.navigation.navstate import NavState, local as ns_local
 
 
 def _times(t, like):
-    return torch.as_tensor(t).to(like)[..., None]
+    return as_float(t, like)[..., None]
 
 
 def _as(x, like_or_dev, dtype=None):
     """x (numbers, numpy, a tensor) as a tensor on a device, in a dtype."""
-    x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x, dtype=np.float64))
+    x = as_float(x)
     return x.to(like_or_dev) if dtype is None else x.to(like_or_dev, dtype)
 
 

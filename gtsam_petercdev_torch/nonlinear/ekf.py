@@ -17,6 +17,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from gtsam_petercdev_torch.core import manifold
+from gtsam_petercdev_torch.device import as_float
 
 
 class ManifoldBelief(NamedTuple):
@@ -42,7 +43,7 @@ def predict(
         return m.local(x_new, motion(m.retract(belief.value, xi)))
 
     F = torch.func.jacfwd(chart)(_zero_tangent(belief, m.dim))
-    P = F @ belief.cov @ F.T + torch.as_tensor(Q)
+    P = F @ belief.cov @ F.T + as_float(Q, belief.cov)
     return ManifoldBelief(x_new, P)
 
 
@@ -59,8 +60,8 @@ def update(
         return h(m.retract(belief.value, xi))
 
     H = torch.func.jacfwd(h_chart)(_zero_tangent(belief, m.dim))
-    R = torch.as_tensor(R)
-    y = torch.as_tensor(z) - h(belief.value)
+    R = as_float(R, belief.cov)
+    y = as_float(z, belief.cov) - h(belief.value)
     S = H @ belief.cov @ H.T + R
     K = torch.linalg.solve(S.T, (belief.cov @ H.T).T).T
     x_new = m.retract(belief.value, K @ y)

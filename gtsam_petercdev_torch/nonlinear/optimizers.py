@@ -64,6 +64,7 @@ class LMParams(OptimizerParams):
 class DoglegParams(OptimizerParams):
     delta_initial: float = 1.0  # trust-region radius Delta0
     delta_min: float = 1e-7
+    verbose_dl: bool = False  # accepted as the JAX package's is; read nowhere
 
 
 @dataclass
