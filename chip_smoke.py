@@ -2494,15 +2494,23 @@ def nav_rel(a, b):
                 / y.double().cpu().abs().max().clamp_min(1e-300)).item() for x, y in zip(a, b))
 
 
-def lm_bad_pivot_trials(levenberg_marquardt, graph, values, params, device):
-    """levenberg_marquardt with its trial lines captured: (result, the count
-    of trials rejected for clamped pivots)."""
-    import dataclasses
+def lm_counts(fn):
+    """(fn(), how far it moved the port's LM counters lm.trials and
+    lm.bad_pivot_trials)."""
+    from gtsam_petercdev_torch.utils import timing
 
-    with contextlib.redirect_stdout(io.StringIO()) as lines:
-        res = levenberg_marquardt(graph, values, dataclasses.replace(params, verbose=True),
-                                  device=device)
-    return res, sum("bad pivots" in ln for ln in lines.getvalue().splitlines())
+    before = timing.counters()
+    out = fn()
+    after = timing.counters()
+    return out, {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("lm.trials", "lm.bad_pivot_trials")}
+
+
+def lm_bad_pivot_trials(levenberg_marquardt, graph, values, params, device):
+    """(levenberg_marquardt's result, the count of its trials rejected for
+    clamped pivots)."""
+    res, counts = lm_counts(lambda: levenberg_marquardt(graph, values, params, device=device))
+    return res, counts["lm.bad_pivot_trials"]
 
 
 def nav_flat(torch, values):
@@ -3520,28 +3528,20 @@ def run_init(torch, v1, here, dev="cuda"):
 # --- phase 14: the robust and global front end ----------------------------------------------
 
 
-def parse_lm_trials(text):
-    """LM's verbose trial lines as (lambda, "bad" | "accepted" | "rejected")."""
-    out = []
-    for ln in text.splitlines():
-        if not ln.startswith("LM iter "):
-            continue
-        lam = float(ln.split("lam=")[1].split(":")[0])
-        if "bad pivots" in ln:
-            out.append((lam, "bad"))
-            continue
-        errs, rho = ln.split(": ", 1)[1].split(" rho=")
-        old, new = (float(x) for x in errs.split(" -> "))
-        out.append((lam, "accepted" if old - new > 0 and float(rho) >= 1e-3 else "rejected"))
-    return out
+def parse_lm_lambdas(text):
+    """The lambda of each trial in LM's verbose lines."""
+    return [float(ln.split("lam=")[1].split(":")[0]) for ln in text.splitlines()
+            if ln.startswith("LM iter ")]
 
 
 class LMRecorder:
     """Each `levenberg_marquardt` call while the context is open (the entry
     points call it through its module): the result, the wall seconds (the
     card synchronized after it), the graph, its launches (the counters set
-    to 0 just before it and read just after) and its trials (LM run
-    verbose: its lines print floats the loop reads anyway)."""
+    to 0 just before it and read just after), its trials, those rejected
+    for bad pivots and those rejected by the model fidelity or a rise (the
+    port's LM counters), and each trial's lambda (LM run verbose: its lines
+    print floats the loop reads anyway)."""
 
     def __init__(self, v1, sync):
         self.v1, self.sync, self.calls = v1, sync, []
@@ -3561,11 +3561,14 @@ class LMRecorder:
             self.v1.reset_launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                res = orig(graph, values, params, device=device)
+                res, counts = lm_counts(lambda: orig(graph, values, params, device=device))
             self.sync()
-            self.calls.append(dict(result=res, s=time.perf_counter() - t0, graph=graph,
-                                   launches=self.v1.launch_counts(),
-                                   trials=parse_lm_trials(buf.getvalue())))
+            trials, bad = counts["lm.trials"], counts["lm.bad_pivot_trials"]
+            self.calls.append(dict(
+                result=res, s=time.perf_counter() - t0, graph=graph,
+                launches=self.v1.launch_counts(), trials=trials, bad_pivot_trials=bad,
+                rejected_trials=trials - bad - (len(res.error_history) - 1),
+                lambdas=parse_lm_lambdas(buf.getvalue())))
             return res
 
         optimizers.levenberg_marquardt = recorded
@@ -3773,12 +3776,12 @@ def run_robust(torch, v1, dev="cuda"):
         lam_dense = dense_certificate(torch, shonan, m, c["Y"])
         eig_s = time.perf_counter() - t0
         ang = gauged_angles(np, shonan.round_solution(vals.params(f"SOn{p}")).cpu().numpy(), R_true)
-        kinds = [k for _, k in call["trials"]]
         lev = dict(p=p, d=p * (p - 1) // 2, iterations=r.iterations, s=call["s"],
                    ms_per_iteration=1e3 * call["s"] / max(1, r.iterations),
-                   error=[r.error_history[0], r.error], trials=len(kinds),
-                   bad_pivot_trials=kinds.count("bad"), rejected_trials=kinds.count("rejected"),
-                   lambdas=[lam for lam, _ in call["trials"]], launches=call["launches"],
+                   error=[r.error_history[0], r.error], trials=call["trials"],
+                   bad_pivot_trials=call["bad_pivot_trials"],
+                   rejected_trials=call["rejected_trials"],
+                   lambdas=call["lambdas"], launches=call["launches"],
                    plan=plan_facts(elimination, maps),
                    device_busy_ms=prof[0] if prof else None,
                    step_launches=prof[1] if prof else None,
@@ -3788,7 +3791,7 @@ def run_robust(torch, v1, dev="cuda"):
         levels.append(lev)
         log(f"robust b) SO({p}) (d = {lev['d']}): LM {r.error_history[0]:.6e} -> {r.error:.6e} in "
             f"{r.iterations} iterations ({call['s']:.2f} s, {lev['ms_per_iteration']:.1f} ms an "
-            f"iteration), {len(kinds)} trials ({lev['bad_pivot_trials']} with bad pivots, "
+            f"iteration), {lev['trials']} trials ({lev['bad_pivot_trials']} with bad pivots, "
             f"{lev['rejected_trials']} rejected), lambda {lev['lambdas'][0]:.1e} .. "
             f"{min(lev['lambdas']):.1e} .. {lev['lambdas'][-1]:.1e}; launches {call['launches']}; "
             f"plan {lev['plan']}; "
@@ -4087,7 +4090,6 @@ def run_geometry(torch, v1, dev="cuda"):
         shapes.update(er.shapes)
         call = rec.calls[0]
         add_launches(call["launches"])
-        kinds = [k for _, k in call["trials"]]
 
         def step(vals):
             return vals.retract(elimination.solve_linearized(g, vals, 1e-5)[0])
@@ -4104,14 +4106,15 @@ def run_geometry(torch, v1, dev="cuda"):
                 busy, steps = prof[0], prof[1]
         res = dict(sizes=sizes, factors=nf, plan=plan, iterations=r.iterations,
                    error=[r.error_history[0], r.error], s=call["s"],
-                   ms_per_iteration=1e3 * call["s"] / max(1, r.iterations), trials=len(kinds),
-                   bad_pivot_trials=kinds.count("bad"), launches=call["launches"],
+                   ms_per_iteration=1e3 * call["s"] / max(1, r.iterations),
+                   trials=call["trials"], bad_pivot_trials=call["bad_pivot_trials"],
+                   launches=call["launches"],
                    step_wall_ms=wall, step_device_busy_ms=busy, step_kernels=steps,
                    busy_share=(busy / wall) if (busy and wall) else None,
                    bad_pivots=er.bad, plain_calls=dict(plain))
         log(f"geometry {key}) {label}: sizes {sizes}, factors {nf}; LM {r.error_history[0]:.6e} -> "
             f"{r.error:.6e} in {r.iterations} iterations ({call['s']:.2f} s, "
-            f"{res['ms_per_iteration']:.1f} ms an iteration, {len(kinds)} trials, "
+            f"{res['ms_per_iteration']:.1f} ms an iteration, {res['trials']} trials, "
             f"{res['bad_pivot_trials']} with bad pivots); launches {call['launches']}; "
             + (f"an LM step {wall:.1f} ms wall, device busy {busy:.3f} ms ({steps} kernels, "
                f"{100 * res['busy_share']:.1f}%); " if busy and wall else "")

@@ -53,6 +53,7 @@ from gtsam_petercdev_torch.inference.symbolic import (
     symbolic_eliminate,
 )
 from gtsam_petercdev_torch.ops import cholesky, cholesky_v2
+from gtsam_petercdev_torch.utils import timing
 
 
 @dataclass
@@ -829,27 +830,28 @@ def _graph_plan(graph, lg):
     cache = graph.__dict__.setdefault("_mf_plans", {})
     ent = cache.get(key)
     if ent is None:
-        types = sorted(lg.type_counts)
-        dims = {t: manifold.get(t).dim for t in types}
-        d = max(dims.values())
-        offs = type_offsets(lg.type_counts)
-        n = sum(lg.type_counts.values())
-        structure = [
-            BatchStructure(
-                tuple(dims[t] for t in lb.var_types),
-                tuple(
-                    np.asarray(r, dtype=np.int64) + offs[t]
-                    for r, t in zip(lb.rows, lb.var_types)
-                ),
-                lb.sign,
-            )
-            for lb in lg.batches
-        ]
-        plan = build_plan_for_graph(structure, n, d)
-        var_dims = np.full(n, d, dtype=np.int64)
-        for t in types:
-            var_dims[offs[t] : offs[t] + lg.type_counts[t]] = dims[t]
-        ent = (plan, build_numeric_maps(plan, structure, var_dims=var_dims))
+        with timing.span("plan"):
+            types = sorted(lg.type_counts)
+            dims = {t: manifold.get(t).dim for t in types}
+            d = max(dims.values())
+            offs = type_offsets(lg.type_counts)
+            n = sum(lg.type_counts.values())
+            structure = [
+                BatchStructure(
+                    tuple(dims[t] for t in lb.var_types),
+                    tuple(
+                        np.asarray(r, dtype=np.int64) + offs[t]
+                        for r, t in zip(lb.rows, lb.var_types)
+                    ),
+                    lb.sign,
+                )
+                for lb in lg.batches
+            ]
+            plan = build_plan_for_graph(structure, n, d)
+            var_dims = np.full(n, d, dtype=np.int64)
+            for t in types:
+                var_dims[offs[t] : offs[t] + lg.type_counts[t]] = dims[t]
+            ent = (plan, build_numeric_maps(plan, structure, var_dims=var_dims))
         cache[key] = ent
     return ent
 
@@ -872,9 +874,10 @@ def solve_linearized(graph, values, lam, diagonal_damping=False, cache=None):
     types = sorted(lg.type_counts)
     offs = type_offsets(lg.type_counts)
     Ab = tuple((lb.A, lb.b) for lb in lg.batches)
-    x, stats = multifrontal_solve(
-        maps, Ab, lam, diagonal_damping=diagonal_damping, return_stats=True
-    )
+    with timing.span("multifrontal"):
+        x, stats = multifrontal_solve(
+            maps, Ab, lam, diagonal_damping=diagonal_damping, return_stats=True
+        )
     # surface the clamped-pivot count so LM can reject indefinite trials
     cache["bad_pivots"] = stats["bad_pivots"]
     delta = {

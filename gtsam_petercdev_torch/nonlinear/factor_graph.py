@@ -34,6 +34,7 @@ from gtsam_petercdev_torch.device import (
 )
 from gtsam_petercdev_torch.linear.noise import RobustLoss
 from gtsam_petercdev_torch.nonlinear.values import Values
+from gtsam_petercdev_torch.utils import timing
 
 
 @dataclass(frozen=True)
@@ -301,25 +302,26 @@ class NonlinearFactorGraph:
     def linearize(self, values: Values) -> LinearizedGraph:
         """Linearize at `values` -> whitened LinearizedGraph, b = -whitened error
         (min ||A delta - b||^2, the JacobianFactor convention)."""
-        self._materialize()
-        self._check_values(values)
-        out = []
-        for batch in self.batches:
-            rows, rows_dev = self._batch_rows(batch, values)
-            xs = self._gather(values, batch, rows_dev)
-            r_w, Js = residual_and_jac(
-                batch.ftype, batch.robust, xs, batch.params, batch.sqrt_info
-            )
-            out.append(
-                LinearBatch(
-                    var_types=batch.ftype.var_types,
-                    rows=rows,
-                    A=Js,
-                    b=-r_w,
-                    sign=batch.sign,
-                    constrained_mask=batch.constrained_mask,
-                    rows_dev=rows_dev,
+        with timing.span("linearize"):
+            self._materialize()
+            self._check_values(values)
+            out = []
+            for batch in self.batches:
+                rows, rows_dev = self._batch_rows(batch, values)
+                xs = self._gather(values, batch, rows_dev)
+                r_w, Js = residual_and_jac(
+                    batch.ftype, batch.robust, xs, batch.params, batch.sqrt_info
                 )
-            )
-        counts = {t: values._count(t) for t in values.types()}
-        return LinearizedGraph(out, counts)
+                out.append(
+                    LinearBatch(
+                        var_types=batch.ftype.var_types,
+                        rows=rows,
+                        A=Js,
+                        b=-r_w,
+                        sign=batch.sign,
+                        constrained_mask=batch.constrained_mask,
+                        rows_dev=rows_dev,
+                    )
+                )
+            counts = {t: values._count(t) for t in values.types()}
+            return LinearizedGraph(out, counts)

@@ -32,6 +32,7 @@ from gtsam_petercdev_torch.device import DeviceLike, check_graph_values, resolve
 from gtsam_petercdev_torch.linear import solve as linsolve
 from gtsam_petercdev_torch.nonlinear.factor_graph import NonlinearFactorGraph
 from gtsam_petercdev_torch.nonlinear.values import Values
+from gtsam_petercdev_torch.utils import timing
 
 
 @dataclass
@@ -213,51 +214,58 @@ def levenberg_marquardt(
     check_graph_values(graph, values, device)
     params = params or LMParams()
     err_fn, retract_fn, solve = _build_fns(graph, params)
-    err = float(err_fn(values))
+    err = float(timing.host_read(err_fn(values)))
     history = [err]
     lam = params.lambda_initial
     converged = False
     it = 0
     for it in range(1, params.max_iterations + 1):
-        cache = {}
-        accepted = False
-        for _try in range(params.max_try_iterations):
-            delta, lin_decrease = solve(values, lam, cache)
-            bad = cache.pop("bad_pivots", None)
-            if bad is not None and int(bad) > 0:
-                # (H + lam D) indefinite at this lambda: the factorization
-                # clamped pivots, so the step is garbage — reject the trial
-                # and re-damp (the IndeterminantLinearSystemException retry)
-                if params.verbose:
-                    print(f"LM iter {it} lam={lam:.2e}: {int(bad)} bad pivots, re-damping")
-                lam *= params.lambda_factor
-                if lam > params.lambda_upper_bound:
-                    break
-                continue
-            new_values = retract_fn(values, delta)
-            new_err = float(err_fn(new_values))
-            cost_change = err - new_err
-            lin_dec = float(lin_decrease)
-            rho = cost_change / lin_dec if lin_dec > 1e-15 else -1.0
-            if params.verbose:
-                print(f"LM iter {it} lam={lam:.2e}: {err:.6e} -> {new_err:.6e} rho={rho:.3f}")
-            if cost_change > 0 and rho >= params.min_model_fidelity:
-                values = new_values
-                lam = max(lam / params.lambda_factor, params.lambda_lower_bound)
-                accepted = True
+        with timing.span("lm.iteration"):
+            timing.count("lm.iterations")
+            cache = {}
+            accepted = False
+            for _try in range(params.max_try_iterations):
+                with timing.span("lm.trial"):
+                    timing.count("lm.trials")
+                    delta, lin_decrease = solve(values, lam, cache)
+                    bad = cache.pop("bad_pivots", None)
+                    n_bad = 0 if bad is None else int(timing.host_read(bad))
+                    if n_bad > 0:
+                        # (H + lam D) indefinite at this lambda: the factorization
+                        # clamped pivots, so the step is garbage — reject the trial
+                        # and re-damp (the IndeterminantLinearSystemException retry)
+                        timing.count("lm.bad_pivot_trials")
+                        if params.verbose:
+                            print(f"LM iter {it} lam={lam:.2e}: {n_bad} bad pivots, re-damping")
+                        lam *= params.lambda_factor
+                        if lam > params.lambda_upper_bound:
+                            break
+                        continue
+                    new_values = retract_fn(values, delta)
+                    new_err = float(timing.host_read(err_fn(new_values)))
+                    cost_change = err - new_err
+                    lin_dec = float(timing.host_read(lin_decrease))
+                    rho = cost_change / lin_dec if lin_dec > 1e-15 else -1.0
+                    if params.verbose:
+                        print(f"LM iter {it} lam={lam:.2e}: {err:.6e} -> {new_err:.6e} "
+                              f"rho={rho:.3f}")
+                    if cost_change > 0 and rho >= params.min_model_fidelity:
+                        values = new_values
+                        lam = max(lam / params.lambda_factor, params.lambda_lower_bound)
+                        accepted = True
+                        break
+                    lam *= params.lambda_factor
+                    if lam > params.lambda_upper_bound:
+                        break
+            if not accepted:
+                converged = True  # cannot decrease further (reference: stop)
                 break
-            lam *= params.lambda_factor
-            if lam > params.lambda_upper_bound:
+            history.append(new_err)
+            if check_convergence(params, err, new_err):
+                err = new_err
+                converged = True
                 break
-        if not accepted:
-            converged = True  # cannot decrease further (reference: stop)
-            break
-        history.append(new_err)
-        if check_convergence(params, err, new_err):
             err = new_err
-            converged = True
-            break
-        err = new_err
     return OptimizerResult(values, err, it, converged, history)
 
 

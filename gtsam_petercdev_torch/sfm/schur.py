@@ -31,6 +31,7 @@ import torch
 
 from gtsam_petercdev_torch.core import manifold
 from gtsam_petercdev_torch.nonlinear.factor_graph import LinearizedGraph
+from gtsam_petercdev_torch.utils import timing
 
 POINT_TYPE = "Point3"
 
@@ -237,8 +238,9 @@ def _graph_plan(graph, lg):
     cache = graph.__dict__.setdefault("_schur_plans", {})
     ent = cache.get(key)
     if ent is None:
-        rows_static = tuple(tuple(np.asarray(r) for r in lb.rows) for lb in lg.batches)
-        ent = cache[key] = (build_schur_plan(lg), rows_static)
+        with timing.span("plan"):
+            rows_static = tuple(tuple(np.asarray(r) for r in lb.rows) for lb in lg.batches)
+            ent = cache[key] = (build_schur_plan(lg), rows_static)
     return ent
 
 
@@ -253,9 +255,10 @@ def solve_linearized(graph, values, lam, diagonal_damping=False, cache=None):
     plan, rows_static = _graph_plan(graph, lg)
 
     Ab = tuple((lb.A, lb.b) for lb in lg.batches)
-    delta, stats = schur_solve(
-        plan, rows_static, Ab, lam, diagonal_damping=diagonal_damping, return_stats=True
-    )
+    with timing.span("schur"):
+        delta, stats = schur_solve(
+            plan, rows_static, Ab, lam, diagonal_damping=diagonal_damping, return_stats=True
+        )
     # surface an indefinite camera system so LM rejects the trial and re-damps
     cache["bad_pivots"] = stats["bad_pivots"]
     return delta, linsolve.linearized_decrease(lg, delta)

@@ -65,12 +65,16 @@ def run_batch(args):
 
     graph, values = _load(args.dataset, args.is3D, args.device)
     ptype = "Pose3" if args.is3D else "Pose2"
-    with timing.tic("batch"):
-        with timing.tic("optimize"):
-            res = optimizers.levenberg_marquardt(
-                graph, values,
-                optimizers.LMParams(solver=args.solver, max_iterations=args.iterations),
-                device=args.device)
+    timing.enable()  # the tree shows LM's spans too: plan, linearize, the solves
+    try:
+        with timing.tic("batch"):
+            with timing.tic("optimize"):
+                res = optimizers.levenberg_marquardt(
+                    graph, values,
+                    optimizers.LMParams(solver=args.solver, max_iterations=args.iterations),
+                    device=args.device)
+    finally:
+        timing.disable()
     print(f"batch: final error {float(res.error):.4f} ({res.iterations} iterations)")
     if args.output:
         np.savez(args.output, sol=_solution_array(res.values, ptype), ptype=ptype)

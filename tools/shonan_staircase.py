@@ -60,12 +60,10 @@ def staircase(m, route):
         shonan.certificate_min_eigenvalue = orig
     levels = []
     for p, call, lam in zip(range(3, 7), rec.calls, certs):
-        kinds = [k for _, k in call["trials"]]
         r = call["result"]
-        levels.append(dict(p=p, iterations=r.iterations, trials=len(kinds),
-                           bad_pivot_trials=kinds.count("bad"),
-                           rejected_trials=kinds.count("rejected"),
-                           lambdas=[x for x, _ in call["trials"]],
+        levels.append(dict(p=p, iterations=r.iterations, trials=call["trials"],
+                           bad_pivot_trials=call["bad_pivot_trials"],
+                           rejected_trials=call["rejected_trials"], lambdas=call["lambdas"],
                            error=[r.error_history[0], r.error], lam_min=lam))
     return dict(route=route, p_final=res.p_final, cpu_s=wall, levels=levels)
 
